@@ -64,21 +64,21 @@ def acoustic_inference(
     tone_ids: torch.Tensor,
     boundary_ids: torch.Tensor,
     max_frames: int,
+    decode_weights: DecodeWeights,
     phoneme_mask: Optional[torch.Tensor] = None,
-    max_len: Optional[int] = None,
     duration_scale: float = 1.0,
     pitch_shift: float = 0.0,
     energy_scale: float = 1.0,
-    decode_weights: Optional[DecodeWeights] = None,
 ) -> AcousticOutput:
-    """Predicted durations + autoregressive mel generation; frames beyond each
-    sample's predicted total are zeroed."""
+    """Predicted durations + autoregressive mel generation of `max_frames`
+    frames over the packed decoder weights (`pack_decoder`); frames beyond
+    each sample's predicted total are zeroed."""
     va = model.encode(
         ph_ids, tone_ids, boundary_ids, max_frames, phoneme_mask,
         duration_scale, pitch_shift, energy_scale,
     )
     mel = ar_decode(
-        model.ar_decoder, va.hvar, max_len=max_len or max_frames,
+        model.ar_decoder, va.hvar, max_frames,
         memory_key_padding_mask=~va.frame_mask, weights=decode_weights,
     )
     mel = mel * va.frame_mask[:, :, None].to(mel.dtype)

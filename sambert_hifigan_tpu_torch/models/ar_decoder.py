@@ -17,7 +17,6 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .. import kernels
 from ..config import DecoderConfig
 from ..ops import ar_decode as k1
 from ..ops.ar_decode import NEG_INF, DecodeWeights
@@ -107,15 +106,12 @@ def precompute_memory_packed(dec: PNCAARDecoder, hvar: torch.Tensor) -> Tuple[to
 def ar_decode(
     dec: PNCAARDecoder,
     hvar: torch.Tensor,  # [B, S, d]
-    max_len: Optional[int] = None,
+    max_len: int,
     memory_key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] True = pad
-    weights: Optional[DecodeWeights] = None,
+    *,
+    weights: DecodeWeights,  # pack_decoder(dec, ...)
 ) -> torch.Tensor:
     """Autoregressive mel generation -> [B, max_len, n_mels] f32."""
-    if max_len is None:
-        max_len = hvar.shape[1]
-    if weights is None:
-        weights = pack_decoder(dec, kernels.kernel_dtype(hvar.device))
     mem_k, mem_v = precompute_memory_packed(dec, hvar.float())
     dt = weights.wqkv.dtype
     b, s = hvar.shape[:2]

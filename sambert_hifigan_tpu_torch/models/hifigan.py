@@ -5,19 +5,18 @@ conv_pre(k7) -> per stage [LeakyReLU(0.1) -> ConvTranspose1d (padding
 conv_post(k7) -> tanh.  No weight norm; the MRF AVERAGES its ResBlocks.
 
 Every MRF runs through the K2 wrapper (ops/mrf.py): the hand-written kernels
-on the card, their plain version on the CPU.  Pass the weights packed once
-(`pack`) to `forward`; without them `forward` packs per call.
+on the card, their plain version on the CPU.  `forward` takes the MRF
+weights packed once by `pack`.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import kernels
 from ..config import GeneratorConfig
 from ..ops.mrf import MRFWeights, mrf, pack_mrf
 from .layers import LRELU_SLOPE, Conv1d, ConvTranspose1d, get_padding
@@ -71,9 +70,7 @@ class HiFiGANGenerator(nn.Module):
         """Every MRF's weights packed for the K2 wrapper."""
         return [pack_mrf(m, dtype) for m in self.mrfs]
 
-    def forward(self, mel: torch.Tensor, mrf_weights: Optional[List[MRFWeights]] = None) -> torch.Tensor:
-        if mrf_weights is None:
-            mrf_weights = self.pack(kernels.kernel_dtype(mel.device))
+    def forward(self, mel: torch.Tensor, mrf_weights: List[MRFWeights]) -> torch.Tensor:
         x = self.conv_pre(mel.float())
         for up, w in zip(self.ups, mrf_weights):
             x = up(F.leaky_relu(x, LRELU_SLOPE))

@@ -13,10 +13,13 @@ predicted frames overflow the estimate is re-run once at the bucket that fits
 
 The pipeline runs on the card unless it is given device="cpu"; on the CPU
 the kernels' plain versions run with f32 weights (the reference numerics).
+The plain-PyTorch layers around the kernels run in IEEE f32 on the card too:
+TF32 is off for matmuls and cuDNN convolutions while the pipeline computes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import List, Optional
 
@@ -30,6 +33,19 @@ from .models.ar_decoder import pack_decoder
 from .models.hifigan import HiFiGANGenerator
 from .text.frontend import FrontEnd, pick_bucket
 from .weights import random_acoustic_model, random_generator
+
+
+@contextlib.contextmanager
+def _ieee_f32():
+    """TF32 off for torch matmuls and cuDNN convolutions (encoder, variance
+    adaptor, memory K/V, vocoder convs), restored on exit."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
 class TTSPipeline:
@@ -74,11 +90,12 @@ class TTSPipeline:
 
     def _acoustic(self, args, max_frames, duration_scale, pitch_shift, energy_scale):
         ph, tone, bound, pmask = args
-        return acoustic_inference(
-            self.acoustic, ph, tone, bound, max_frames, phoneme_mask=pmask,
-            duration_scale=duration_scale, pitch_shift=pitch_shift,
-            energy_scale=energy_scale, decode_weights=self.decode_weights,
-        )
+        with _ieee_f32():
+            return acoustic_inference(
+                self.acoustic, ph, tone, bound, max_frames, self.decode_weights,
+                phoneme_mask=pmask, duration_scale=duration_scale,
+                pitch_shift=pitch_shift, energy_scale=energy_scale,
+            )
 
     @staticmethod
     def _warn_truncated(need: int, max_frames: int) -> None:
@@ -118,7 +135,8 @@ class TTSPipeline:
     @torch.no_grad()
     def vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
         """mel [B, T, n_mels] -> wav [B, 1, T * hop]."""
-        return self.generator(mel_btc.transpose(1, 2), self.mrf_weights)
+        with _ieee_f32():
+            return self.generator(mel_btc.transpose(1, 2), self.mrf_weights)
 
     def synthesize(
         self,

@@ -178,7 +178,7 @@ def test_generator_matches_flax():
     port = HiFiGANGenerator(pcfg.GeneratorConfig(**GEN_CFG))
     port.load_state_dict(generator_state_dict_from_flax(params))
     with torch.no_grad():
-        out = port(torch.from_numpy(mel)).numpy()
+        out = port(torch.from_numpy(mel), port.pack(torch.float32)).numpy()
     assert out.shape == ref.shape == (2, 1, 8 * 256)
     # tanh output; f32 conv reassociation over 4 stages
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)

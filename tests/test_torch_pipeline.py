@@ -24,6 +24,7 @@ from sambert_hifigan_tpu.pipeline import build_pipeline_from_random_init as j_bu
 
 from sambert_hifigan_tpu_torch import config as pcfg
 from sambert_hifigan_tpu_torch import inference
+from sambert_hifigan_tpu_torch import pipeline as pipeline_mod
 from sambert_hifigan_tpu_torch.pipeline import TTSPipeline, build_pipeline_from_random_init
 from sambert_hifigan_tpu_torch.weights import (
     acoustic_state_dict_from_flax,
@@ -84,6 +85,27 @@ def test_slice_matches_jax_pipeline(pipelines):
         np.testing.assert_allclose(a, b, atol=1e-3, rtol=0)
     one = pp.synthesize(TEXTS[0])
     np.testing.assert_allclose(one, pw[0], atol=1e-5, rtol=0)
+
+
+def test_pipeline_computes_without_tf32(pipelines, monkeypatch):
+    """The plain layers around the kernels run in IEEE f32 whatever the
+    caller's TF32 settings, and those settings come back afterwards."""
+    _, pp = pipelines
+    seen = []
+
+    def spy(fn):
+        def call(*args, **kwargs):
+            seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(pipeline_mod, "acoustic_inference", spy(pipeline_mod.acoustic_inference))
+    monkeypatch.setattr(pp.generator, "forward", spy(pp.generator.forward))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    pp.synthesize(TEXTS[0])
+    assert len(seen) >= 2 and set(seen) == {(False, False)}
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
 
 
 def test_imports_no_jax_flax_yaml_or_jax_package():
