@@ -5,7 +5,9 @@
 
 Builds the hand-written CUDA kernels from `sambert_hifigan_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the full default
-width, then drives the one-shot text -> wav path (`synthesize_batch`,
+width (K2 also on a 5-frame utterance, shorter than its halo), reports each
+K2 stage's TFLOP/s and share of its bound, then drives the one-shot text ->
+wav path (`synthesize_batch`,
 `synthesize`) of a pipeline with random weights made from a seed, and checks
 that every kernel of that path launched.  Any failed phase raises and the
 script exits non-zero.  It imports nothing of JAX.
@@ -185,7 +187,10 @@ def mrf_library(x, w):
     return (out / len(w.kernel_sizes)).to(torch.float32)
 
 
-def phase_k2(pipe, frames: int, batches, gen, dev):
+def phase_k2(pipe, frames: int, batches, gen, dev, timed: bool = True):
+    """K2 against its plain version at every generator stage for `frames`
+    mel frames; with `timed`, also the kernel's, the plain version's and the
+    library's times, the achieved TFLOP/s and the share of the bound."""
     import torch
 
     from sambert_hifigan_tpu_torch.ops import mrf as k2
@@ -203,20 +208,22 @@ def phase_k2(pipe, frames: int, batches, gen, dev):
             torch.cuda.synchronize()
             err = (out - ref).abs()
             edge = torch.cat([err[..., :64], err[..., -64:]], dim=-1)
-            ms = cuda_ms(lambda: k2.mrf(x, w), reps=3)
-            plain_ms = cuda_ms(lambda: k2.mrf_plain(x, w), reps=2)
-            library_ms = cuda_ms(lambda: mrf_library(x, w), reps=3)
-            flops = 2 * sum(2 * len(w.dilations) * k for k in w.kernel_sizes) * c * c * t * b
-            bms, by = bound_ms(2 * nbytes(x) + nbytes(w.packed, w.biases), flops)
             row = dict(stage=i, C=c, B=b, T=t, max_abs_err=err.max().item(),
                        mean_abs_err=err.mean().item(), edge_max_abs_err=edge.max().item(),
-                       ref_mean_abs=ref.abs().mean().item(), ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bms, bound_by=by)
+                       ref_mean_abs=ref.abs().mean().item())
+            if timed:
+                ms = cuda_ms(lambda: k2.mrf(x, w), reps=3)
+                flops = 2 * sum(2 * len(w.dilations) * k for k in w.kernel_sizes) * c * c * t * b
+                bms, by = bound_ms(2 * nbytes(x) + nbytes(w.packed, w.biases), flops)
+                row.update(ms=ms, plain_ms=cuda_ms(lambda: k2.mrf_plain(x, w), reps=2),
+                           library_ms=cuda_ms(lambda: mrf_library(x, w), reps=3),
+                           bound_ms=bms, bound_by=by, tflops=flops / ms * 1e-9,
+                           share_of_bound=bms / ms)
             log("[k2]", json.dumps(row))
             if not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"K2 stage {i} B={b}: non-finite output")
+                raise AssertionError(f"K2 stage {i} B={b} T={t}: non-finite output")
             if not (row["max_abs_err"] < K2_TOL_MAX and row["edge_max_abs_err"] < K2_TOL_MAX):
-                raise AssertionError(f"K2 stage {i} B={b} outside tolerance: {row}")
+                raise AssertionError(f"K2 stage {i} B={b} T={t} outside tolerance: {row}")
             rows[(i, b)] = row
     return rows
 
@@ -325,6 +332,8 @@ def main() -> int:
     k1_rows = phase_k1(cfg, dev, gen)
     pipe = build_pipeline_from_random_init(cfg, seed=0)
     k2_rows = phase_k2(pipe, 1024, (1, 2, 4), gen, dev)
+    # a short utterance: T = 40 at stage 0, under the k = 11 chain's halo
+    phase_k2(pipe, 5, (1, 4), gen, dev, timed=False)
     launches, _ = phase_pipeline(pipe)
 
     k1_main = k1_rows[(4, 1024)]

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own shared
 library with a plain C interface, loaded with `ctypes`.  The build is keyed by
-a hash of the source, so a stale library is never loaded, and it happens at
+a hash of the source, every `csrc/` file it includes and the `nvcc` command,
+so a stale library is never loaded, and it happens at
 the first CUDA call (or `build_all()`), never at import: the package imports
 and its CPU tests run where there is no `nvcc`.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ar_decode": ("ar_decode_launch", [_P] * 26 + [_I] * 8 + [_P]),
-    "mrf": ("mrf_launch", [_P] * 7 + [_I] * 5 + [_P, _P, _P]),
+    "mrf": ("mrf_launch", [_P] * 8 + [_I] * 5 + [_P] * 5),
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -59,9 +61,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """`csrc/<name>.cu` and every file under `csrc/` that it includes,
+    directly or not, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.is_file() or not path.is_relative_to(CSRC):
+            continue
+        seen.append(path)
+        todo.extend((path.parent / inc.decode()).resolve()
+                    for inc in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(str(path.relative_to(CSRC)).encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(_nvcc_cmd(name, Path("OUT"))).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path) -> list:

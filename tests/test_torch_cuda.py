@@ -74,12 +74,15 @@ def test_k1_kernel_matches_plain_on_card(cuda_device, b):
     assert err.mean() < 5e-3 and err.max() < 5e-2, (err.mean().item(), err.max().item())
 
 
-@pytest.mark.parametrize("c", [32, 64, 128])
-def test_k2_kernel_matches_plain_on_card(cuda_device, c):
+@pytest.mark.parametrize("t", [40, 1000, 4099])
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_k2_kernel_matches_plain_on_card(cuda_device, c, t):
     """Same bf16 rounding points, f32 sums in another order; edge samples,
-    where every conv zero-pads its own input, are checked on their own."""
+    where every conv zero-pads its own input, are checked on their own.
+    T = 4099 is no multiple of any tile; T = 40 is shorter than the k = 11
+    chain's 60-sample halo."""
     w = k2.pack_mrf(_mrf(c, cuda_device), torch.bfloat16)
-    x = torch.from_numpy(_np(60, 2, c, 1000)).to(cuda_device)
+    x = torch.from_numpy(_np(60, 2, c, t)).to(cuda_device)
     before = k2.launches
     out = k2.mrf(x, w)
     torch.cuda.synchronize()
@@ -95,8 +98,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # f32 weights are the CPU packing
         k2.mrf(torch.zeros(1, 32, 128, device=cuda_device), k2.pack_mrf(port, torch.float32))
     w = k2.pack_mrf(_mrf(96, cuda_device), torch.bfloat16)
-    with pytest.raises(ValueError):  # 96 channels: neither 32 nor a multiple of 64
+    with pytest.raises(ValueError):  # 96 channels: neither 32, 64 nor a multiple of 128
         k2.mrf(torch.zeros(1, 96, 128, device=cuda_device), w)
+    port = MRF(64, kernel_sizes=(3, 35), dilation_sizes=((1, 3, 5),) * 2)
+    init_defaults_(port, torch.Generator().manual_seed(2))
+    w = k2.pack_mrf(port.to(cuda_device), torch.bfloat16)
+    with pytest.raises(ValueError):  # the k = 35 chain's 204-sample halo fills the window
+        k2.mrf(torch.zeros(1, 64, 128, device=cuda_device), w)
     dec = _decoder(cuda_device)
     w = p_ar.pack_decoder(dec, torch.bfloat16)
     mk = torch.zeros(DEC["n_layers"], 1, 8, D, dtype=torch.bfloat16, device=cuda_device)

@@ -19,7 +19,8 @@ from sambert_hifigan_tpu.models import hifigan as j_hg
 from sambert_hifigan_tpu.ops.pallas.decode_kernel import pallas_ar_decode
 from sambert_hifigan_tpu.ops.pallas.mrf_kernel import fused_mrf, plan_mrf
 
-from sambert_hifigan_tpu_torch.config import DecoderConfig as PDecoderConfig
+from sambert_hifigan_tpu_torch import kernels
+from sambert_hifigan_tpu_torch.config import DecoderConfig as PDecoderConfig, default_config
 from sambert_hifigan_tpu_torch.models import ar_decoder as p_ar
 from sambert_hifigan_tpu_torch.models.hifigan import MRF
 from sambert_hifigan_tpu_torch.ops import mrf as k2
@@ -126,8 +127,84 @@ def test_k2_plain_bf16_matches_pallas_kernel_interior():
 
 
 def test_pack_conv_tiles_layout():
+    """The per-conv kernel's packing: one contiguous stage per (64-channel
+    output tile, 16-channel input slice), taps, then two planes of 8 input
+    channels, each [64 out channels][8]."""
+    w = torch.arange(128 * 32 * 3, dtype=torch.float32).reshape(128, 32, 3)
+    tiles = k2.pack_conv_tiles(w).reshape(2, 2, 3, 2, 64, 8)
+    # out tile 1, input slice 1, tap 2, plane 0, out channel 64 + 5, in channel 16 + 7
+    assert tiles[1, 1, 2, 0, 5, 7] == w[64 + 5, 16 + 7, 2]
+    assert tiles[0, 1, 0, 1, 9, 3] == w[9, 16 + 8 + 3, 0]
+
+
+def test_pack_conv_taps_layout():
     w = torch.arange(32 * 48 * 3, dtype=torch.float32).reshape(32, 48, 3)
-    tiles = k2.pack_conv_tiles(w).reshape(2, 3, 3, 16, 16)
-    # tile (co_chunk 1, ci_chunk 2, tap 1), element (co 5, ci 7)
-    assert tiles[1, 2, 1, 5, 7] == w[16 + 5, 32 + 7, 1]
+    taps = k2.pack_conv_taps(w).reshape(3, 32, 48)
+    # tap 1, out channel 21, in channel 39: one [co][ci] slice per tap
+    assert taps[1, 21, 39] == w[21, 39, 1]
+    assert torch.equal(taps[2], w[:, :, 2])
+
+
+def _stage_widths():
+    cfg = default_config().vocoder.generator
+    return [cfg.upsample_initial_channel // 2 ** (i + 1) for i in range(len(cfg.upsample_rates))]
+
+
+@pytest.mark.parametrize("t", [1, 40, 1000, 4099, 262144])
+@pytest.mark.parametrize("c", _stage_widths())
+def test_k2_launch_plan(c, t):
+    """For every stage width of the default generator: each launch fits in a
+    block's shared memory, carries the sum of its chained convs' half-spans
+    as its halo, and its time tiles cover [0, T) exactly."""
+    cfg = default_config().vocoder.generator
+    ks, dils = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes[0]
+    plan = k2.launch_plan(c, ks, dils, 4, t)
+    chained = c in k2.CHAIN_CHANNELS
+    assert len(plan) == (len(ks) if chained else 2 * len(ks) * len(dils))
+    assert sorted({launch.convs[0][0] for launch in plan}) == sorted(ks)
+    for launch in plan:
+        k = launch.convs[0][0]
+        if chained:
+            assert launch.convs == tuple(kd for d in dils for kd in ((k, d), (k, 1)))
+            assert launch.halo == sum((k - 1) * d // 2 + (k - 1) // 2 for d in dils)
+            assert launch.halo == {3: 12, 7: 36, 11: 60}[k]
+        else:
+            ((_, d),) = launch.convs
+            assert launch.halo == (k - 1) * d // 2
+        assert 0 < launch.smem <= kernels.MAX_SMEM
+        starts = [i * launch.tile for i in range(launch.grid[0])]
+        covered = [s for start in starts for s in range(start, min(start + launch.tile, t))]
+        assert covered == list(range(t))
+        assert launch.grid[1:] == ((4, 1) if chained else (c // k2.CONV_CO, 4))
+
+
+def test_k2_launch_plan_refuses():
+    with pytest.raises(ValueError):  # neither 32, 64 nor a multiple of 64 from 128
+        k2.launch_plan(96, (3, 7, 11), (1, 3, 5), 1, 100)
+    with pytest.raises(ValueError):  # the k = 35 chain's halo fills the 384-sample window
+        k2.launch_plan(64, (3, 35), (1, 3, 5), 1, 100)
+    with pytest.raises(ValueError):  # even kernel size
+        k2.launch_plan(128, (4,), (1,), 1, 100)
+    with pytest.raises(ValueError):  # a conv whose input windows pass 227 KB
+        k2.launch_plan(128, (3,), (3000,), 1, 100)
+
+
+def test_kernel_build_key_covers_includes_and_command(monkeypatch, tmp_path):
+    """The library's name changes with the source, with a csrc header it
+    includes, and with the nvcc command, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "k.cuh"\n#include <cuda_runtime.h>\n')
+    (csrc / "k.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    first = kernels._target("k")
+    assert kernels._target("k") == first
+    assert [p.name for p in kernels._sources("k")] == ["k.cu", "k.cuh"]
+    (csrc / "k.cuh").write_text("// v2\n")
+    second = kernels._target("k")
+    assert second != first
+    cmd = kernels._nvcc_cmd
+    monkeypatch.setattr(kernels, "_nvcc_cmd", lambda name, out: cmd(name, out) + ["-DX"])
+    assert kernels._target("k") not in (first, second)
 
