@@ -5,11 +5,13 @@
 
 Builds the hand-written CUDA kernels from `sambert_hifigan_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the full default
-width (K2 also on a 5-frame utterance, shorter than its halo), reports each
-K2 stage's TFLOP/s and share of its bound, then drives the one-shot text ->
-wav path (`synthesize_batch`,
-`synthesize`) of a pipeline with random weights made from a seed, and checks
-that every kernel of that path launched.  Any failed phase raises and the
+width (K1 at B = 1, 4 and 16, at B = 16 over the largest frame bucket, which
+takes two clusters, and at the main path's own shape: the texts' frame bucket
+and each row's valid frames, from the pipeline; K2 also on a 5-frame
+utterance, shorter than its halo), reports each K2 stage's TFLOP/s and share
+of its bound and K1's per-step stream bound, then drives the one-shot text ->
+wav path (`synthesize_batch`, `synthesize`) of a pipeline with random
+weights made from a seed, and checks that every kernel of that path launched.  Any failed phase raises and the
 script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
@@ -90,8 +92,24 @@ def nbytes(*tensors) -> int:
 
 # ---- phase 2: K1 ------------------------------------------------------------
 
+# (name, B, T = S, valid frames of the rows that have padding)
+K1_SHAPES = (
+    ("B1", 1, 1024, {0: 900}),
+    ("B4-T256", 4, 256, {0: 200, 1: 120, 3: 64}),
+    ("B4", 4, 1024, {0: 1000, 1: 700, 3: 300}),
+    ("B16", 16, 1024, {}),
+    ("B16-T2048", 16, 2048, {0: 1500, 5: 700}),  # the largest buckets: two clusters of 8 rows
+)
 
-def k1_inputs(cfg, b: int, t: int, pads, gen, dev):
+
+def main_path_shape(pipe):
+    """K1's shape on the main path (phase 4): B = len(TEXTS), T = S = the
+    texts' frame bucket, and each row's valid memory frames."""
+    mask = pipe.text_to_mel(TEXTS).frame_mask
+    return ("main-path", mask.shape[0], mask.shape[1], dict(enumerate(mask.sum(dim=1).tolist())))
+
+
+def k1_inputs(cfg, b: int, t: int, valid, gen, dev):
     import torch
 
     from sambert_hifigan_tpu_torch.models import ar_decoder as ard
@@ -105,36 +123,58 @@ def k1_inputs(cfg, b: int, t: int, pads, gen, dev):
     dec = dec.to(dev).eval()
     w = ard.pack_decoder(dec, torch.bfloat16)
     mask = torch.zeros(b, t, dtype=torch.bool)
-    for row, start in pads.items():
-        mask[row, start:] = True
+    for row, n in valid.items():  # rows not named keep every frame
+        mask[row, n:] = True
     hvar = torch.randn(b, t, am.d_model, generator=gen) * (~mask)[:, :, None]
     mk, mv = ard.precompute_memory_packed(dec, hvar.to(dev))
     bias = torch.where(mask, k1.NEG_INF, 0.0).float().to(dev).contiguous()
     return w, mk.bfloat16().contiguous(), mv.bfloat16().contiguous(), bias
 
 
-def k1_work(w, mk, t: int):
-    """(bytes, flops) of one decode: every input read once, the mel written
-    once; dense products per step and row plus the attention over the cache
-    and the memory."""
+def k1_memory_rows(bias) -> int:
+    """Memory frames the decode needs, summed over rows: the unmasked ones
+    (a masked frame adds exactly 0 to every sum), or all of a row's frames
+    when it has none (its softmax is uniform)."""
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+
+    valid = (bias > k1.MASKED).sum(dim=1)
+    return int(sum(n if n else bias.shape[1] for n in valid.tolist()))
+
+
+def k1_work(w, mk, bias, t: int):
+    """(bytes, flops) of one decode: every input it needs read once (the
+    memory K/V of the frames the data leaves unmasked), the mel written once;
+    dense products per step and row plus the attention over the cache and
+    those frames."""
     L, b, s, d = mk.shape
     n_mels = w.mel_w.shape[1]
     weights = nbytes(*w.matrices, *w.vectors) - nbytes(w.pe) + t * d * 4
-    moved = weights + 2 * nbytes(mk) + b * s * 4 + b * t * n_mels * 4
+    rows = k1_memory_rows(bias)
+    moved = weights + 2 * L * rows * d * mk.element_size() + b * s * 4 + b * t * n_mels * 4
     params = sum(m.numel() for m in w.matrices)
-    attn = L * 4 * d * (t * (t + 1) // 2 + t * s)
-    return moved, b * (2 * params * t + attn)
+    attn = L * 4 * d * (b * t * (t + 1) // 2 + t * rows)
+    return moved, b * 2 * params * t + attn
 
 
-def phase_k1(cfg, dev, gen):
+def k1_stream_ms(w, mk, bias, t: int) -> float:
+    """What a step must read, weights once for all rows plus the needed
+    memory K/V and the self-attention caches (t + 1 rows, averaged over the
+    steps), over the card's memory rate, for the whole decode: the floor for
+    a decode whose weights and K/V come from device memory at every step."""
+    L, b, s, d = mk.shape
+    per_step = (nbytes(*w.matrices) + 2 * L * k1_memory_rows(bias) * d * mk.element_size()
+                + 2 * L * b * (t + 1) / 2 * d * mk.element_size())
+    return t * per_step / HBM_BYTES_PER_S * 1e3
+
+
+def phase_k1(cfg, shapes, dev, gen):
     import torch
 
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
 
     rows = {}
-    for b, t, pads in ((1, 1024, {0: 900}), (4, 256, {0: 200, 1: 120, 3: 64}),
-                       (4, 1024, {0: 1000, 1: 700, 3: 300})):
-        w, mk, mv, bias = k1_inputs(cfg, b, t, pads, gen, dev)
+    for name, b, t, valid in shapes:
+        w, mk, mv, bias = k1_inputs(cfg, b, t, valid, gen, dev)
         t0 = time.perf_counter()
         out = k1.ar_decode(w, mk, mv, bias, t)
         torch.cuda.synchronize()
@@ -146,21 +186,23 @@ def phase_k1(cfg, dev, gen):
         err = (out - ref).abs()
         finite = bool(torch.isfinite(out).all())
         ms = cuda_ms(lambda: k1.ar_decode(w, mk, mv, bias, t), reps=2)
-        moved, flops = k1_work(w, mk, t)
+        moved, flops = k1_work(w, mk, bias, t)
         bms, by = bound_ms(moved, flops)
-        # the weights are read again at every step: the bound if they came
-        # from device memory each time instead of staying in L2
-        restream_ms = t * nbytes(*w.matrices) / HBM_BYTES_PER_S * 1e3
-        row = dict(B=b, T=t, max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
-                   ref_mean_abs=ref.abs().mean().item(), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bms, bound_by=by, restream_bound_ms=restream_ms,
+        plan = k1.launch_plan(b, t, t, mk.shape[0], mk.shape[3], w.n_heads, w.w1.shape[-1],
+                              w.mel_w.shape[1], w.pe.shape[0])
+        row = dict(shape=name, B=b, T=t, valid=valid, max_abs_err=err.max().item(),
+                   mean_abs_err=err.mean().item(), ref_mean_abs=ref.abs().mean().item(), ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   stream_bound_ms=k1_stream_ms(w, mk, bias, t),
+                   plan=dict(cluster=plan.cluster, rows=plan.rows, groups=plan.groups,
+                             stages=plan.stages, smem=plan.smem),
                    first_call_s=first_s)
         log("[k1]", json.dumps(row))
         if not finite:
             raise AssertionError(f"K1 B={b} T={t}: non-finite output")
         if not (row["mean_abs_err"] < K1_TOL_MEAN and row["max_abs_err"] < K1_TOL_MAX):
             raise AssertionError(f"K1 B={b} T={t} outside tolerance: {row}")
-        rows[(b, t)] = row
+        rows[name] = row
     return rows
 
 
@@ -329,14 +371,16 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = default_config()
     gen = torch.Generator().manual_seed(0)
-    k1_rows = phase_k1(cfg, dev, gen)
     pipe = build_pipeline_from_random_init(cfg, seed=0)
+    k1_rows = phase_k1(cfg, K1_SHAPES + (main_path_shape(pipe),), dev, gen)
+    if k1_rows["B16-T2048"]["plan"]["groups"] < 2:
+        raise AssertionError("K1 at B=16, T=2048 ran on one cluster, not two")
     k2_rows = phase_k2(pipe, 1024, (1, 2, 4), gen, dev)
     # a short utterance: T = 40 at stage 0, under the k = 11 chain's halo
     phase_k2(pipe, 5, (1, 4), gen, dev, timed=False)
     launches, _ = phase_pipeline(pipe)
 
-    k1_main = k1_rows[(4, 1024)]
+    k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
     kernels_line = {"kernels": [
         {"name": "ar_decode", "route": "cuda",
@@ -357,8 +401,9 @@ def main() -> int:
          else "bytes",
          "library_ms": sum(r["library_ms"] for r in k2_main)},
     ]}
-    log("[kernels] K1 at B=4, T=S=1024; K2 summed over the four stages at B=4, "
-        "T=1024 frames (one vocode of the main path)")
+    log(f"[kernels] K1 at the main path's shape (B={k1_main['B']}, T=S={k1_main['T']}, "
+        f"valid frames {list(k1_main['valid'].values())}); K2 summed over the four stages "
+        "at B=4, T=1024 frames (one vocode of the main path)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,7 +53,8 @@ class PNCAARDecoder(nn.Module):
 @torch.no_grad()
 def pack_decoder(dec: PNCAARDecoder, dtype: torch.dtype) -> DecodeWeights:
     """Matrices to [in, out] in `dtype`, stacked over layers, Q/K/V fused;
-    biases, LayerNorm and PE in f32."""
+    biases, LayerNorm and PE in f32; in bf16 also the kernel's weight stream
+    for its cluster size."""
 
     def mat(lin):
         return lin.weight.detach().t()
@@ -68,7 +69,7 @@ def pack_decoder(dec: PNCAARDecoder, dtype: torch.dtype) -> DecodeWeights:
         return t.detach().float().contiguous()
 
     f32 = torch.float32
-    return DecodeWeights(
+    w = DecodeWeights(
         prenet_w1=m(mat(dec.prenet1)), prenet_b1=v(dec.prenet1.bias),
         prenet_w2=m(mat(dec.prenet2)), prenet_b2=v(dec.prenet2.bias),
         wqkv=stack(lambda q: torch.cat([mat(q.self_attn.wq), mat(q.self_attn.wk),
@@ -92,6 +93,10 @@ def pack_decoder(dec: PNCAARDecoder, dtype: torch.dtype) -> DecodeWeights:
         pe=v(dec.pe),
         n_heads=dec.config.n_heads,
     )
+    cluster = k1.cluster_size(dec.d_model, dec.config.d_ff, dec.n_mels)
+    if dtype != torch.bfloat16 or not cluster:  # the kernel's stream is bf16
+        return w
+    return w._replace(stream=k1.pack_stream(w, cluster))
 
 
 @torch.no_grad()

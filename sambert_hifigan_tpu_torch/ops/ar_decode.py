@@ -3,7 +3,11 @@
 `ar_decode` is the wrapper.  A CUDA tensor goes to the hand-written kernel in
 `csrc/ar_decode.cu` (or the call raises); a CPU tensor goes to
 `ar_decode_plain`, the same function in plain PyTorch.  There is no switch
-and no fallback.
+and no fallback.  The kernel is one launch for the whole batch on
+thread-block clusters; `launch_plan` computes its geometry on the host (the
+C code refuses a plan that does not match its own layout), `pack_stream`
+lays out each CTA's weight slices, and a cluster the card cannot schedule
+raises RuntimeError.
 
 Numerics (the contract of the JAX package's Pallas kernel, which this
 replaces): matmul inputs and weights bf16 with f32 accumulation, biases,
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,7 +33,6 @@ from .. import kernels
 launches = 0  # kernel launches through `ar_decode` (never the plain version)
 
 NEG_INF = -1e9
-_THREADS = 512  # threads per block, as in csrc/ar_decode.cu
 
 
 class DecodeWeights(NamedTuple):
@@ -60,6 +63,7 @@ class DecodeWeights(NamedTuple):
     mel_b: torch.Tensor
     pe: torch.Tensor  # [max_len, d]
     n_heads: int
+    stream: Optional[torch.Tensor] = None  # pack_stream(...) for the kernel, bf16 only
 
     @property
     def matrices(self):
@@ -70,6 +74,44 @@ class DecodeWeights(NamedTuple):
     def vectors(self):
         return (self.prenet_b1, self.prenet_b2, self.bqkv, self.bo, self.bcq,
                 self.bco, self.b1, self.b2, self.ln, self.mel_b, self.pe)
+
+
+def pack_stream(w: DecodeWeights, cluster: int) -> torch.Tensor:
+    """The kernel's weight stream: [cluster, n] in the weights' dtype, row
+    `rank` holding that CTA's slice of every matrix in the order one step
+    reads them (prenet1, prenet2, per layer wqkv, wo, wcq, wco, w1, then w2's
+    K rows, mel), each slice [K, n] as [K/16][n/8][16][8] (the 16 x 8 tiles
+    of mma.sync's B operand, each 256 contiguous bytes, so ldmatrix reads
+    them without bank conflicts), so that every chunk of 16-row steps the CTA
+    copies is contiguous; rows zero-padded to one length."""
+    d, d_ff, n_mels = w.prenet_w2.shape[0], w.w1.shape[-1], w.mel_w.shape[1]
+    rows = []
+    for rank in range(cluster):
+        parts = []
+
+        def tiles(m):
+            k, n = m.shape
+            parts.append(m.reshape(k // 16, 16, n // 8, 8).transpose(1, 2).reshape(-1))
+
+        def cols(m, n):
+            a, b = _col_split(n, rank, cluster)
+            tiles(m[:, a:b])
+
+        cols(w.prenet_w1, d)
+        cols(w.prenet_w2, d)
+        for l in range(w.wqkv.shape[0]):
+            cols(w.wqkv[l], 3 * d)
+            for m in (w.wo, w.wcq, w.wco):
+                cols(m[l], d)
+            cols(w.w1[l], d_ff)
+            tiles(w.w2[l][rank * d_ff // cluster:(rank + 1) * d_ff // cluster])
+        cols(w.mel_w, n_mels)
+        rows.append(torch.cat(parts))
+    out = torch.zeros(cluster, max(len(r) for r in rows), dtype=w.wqkv.dtype,
+                      device=w.wqkv.device)
+    for rank, r in enumerate(rows):
+        out[rank, :len(r)] = r
+    return out
 
 
 def ar_decode(
@@ -150,25 +192,163 @@ def ar_decode_plain(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def smem_bytes(max_len: int, mem_len: int, d: int, n_heads: int, d_ff: int,
-               n_mels: int) -> int:
-    """Dynamic shared memory of one K1 block (mirrors csrc/ar_decode.cu)."""
-    floats = (
-        d  # x
-        + max(3 * d, d_ff, d)  # tmp
-        + max(d_ff, d, n_mels)  # vin
-        + 2 * d  # qs, att
-        + n_mels  # prev
-        + _THREADS // 32  # lnred
-        + 8 * _THREADS  # split-K partials
-        + n_heads * max(max_len, mem_len)  # scores
-    )
-    return 4 * floats
+class Plan(NamedTuple):
+    """K1's launch plan: `groups` thread-block clusters of `cluster` CTAs,
+    each decoding `rows` batch rows (the last group may hold fewer); keys
+    split over a cluster's CTAs in interleaved tiles of `key_tile`; weights
+    streamed through a ring of `stages` x `stage_bytes`; `smem` bytes of
+    dynamic shared memory per CTA."""
+
+    cluster: int
+    rows: int
+    groups: int
+    key_tile: int
+    stages: int
+    stage_bytes: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.groups * self.cluster
+
+    def row_groups(self, b: int):
+        """[start, stop) of the batch rows of each cluster."""
+        return [(g * self.rows, min(b, (g + 1) * self.rows)) for g in range(self.groups)]
+
+    def columns(self, n: int, rank: int) -> Tuple[int, int]:
+        """[start, stop) of the output columns of an n-column matrix that CTA
+        `rank` computes, in whole 8-column tiles (some CTAs may get none)."""
+        return _col_split(n, rank, self.cluster)
+
+    def k_rows(self, n: int, rank: int) -> Tuple[int, int]:
+        """[start, stop) of the K rows of w2 (n = d_ff) that CTA `rank`
+        multiplies: the slice of the hidden vector its w1 columns made."""
+        return rank * n // self.cluster, (rank + 1) * n // self.cluster
+
+    def key_tiles(self, n: int, rank: int):
+        """[start, stop) ranges of the keys 0..n-1 that CTA `rank` scores:
+        tiles j with j % cluster == rank."""
+        kt = self.key_tile
+        return [(j * kt, min(n, (j + 1) * kt)) for j in range(rank, -(-n // kt), self.cluster)]
+
+
+# the geometry of csrc/ar_decode.cu, which checks the plan against its own
+THREADS = 512  # per CTA: 16 warps
+MAX_ROWS = 16  # batch rows per cluster: the M of mma.sync.m16n8k16
+KEY_TILE = 8
+RING_STAGES, STAGE_BYTES = (4, 3, 2), 32768  # the deepest ring that fits is taken
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+WIDTHS = (32, 64, 128, 256, 512)  # d: a divisor of THREADS, at most 512 per LayerNorm warp
+MAX_CTA_COLUMNS = 512  # 4 n-tiles per warp
+MASKED = NEG_INF / 2  # a memory key whose bias is at or below this is padding
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _al16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _col_split(n: int, rank: int, cluster: int) -> Tuple[int, int]:
+    tiles = n // 8
+    return 8 * (rank * tiles // cluster), 8 * ((rank + 1) * tiles // cluster)
+
+
+def _widest(n: int, cluster: int) -> int:
+    return max(b - a for a, b in (_col_split(n, r, cluster) for r in range(cluster)))
+
+
+def _red_bytes(ncols: int, rows: int) -> int:
+    """Split-K partials of one product: warps split the CTA's n-tiles first
+    (a power of two of them), the K steps over the rest; none when the
+    columns take every warp."""
+    nwn = 1
+    while nwn * 2 <= min(ncols // 8, THREADS // 32):
+        nwn *= 2
+    nwk = THREADS // 32 // nwn if ncols else 1
+    return 0 if nwk == 1 else nwk * rows * ncols * 4
+
+
+def _cta_columns(d: int, d_ff: int, n_mels: int, cluster: int):
+    """Widest slice each product gives one CTA: the column-split matrices
+    (prenet and attention outputs, Q/K/V, w1, mel) and w2, split over its K
+    rows and so computing all d columns."""
+    return [_widest(n, cluster) for n in (d, 3 * d, d_ff, n_mels)] + [d]
+
+
+def _splits(cluster: int, d: int, d_ff: int, n_mels: int) -> bool:
+    """Whether a cluster of this size splits every matrix into whole tiles:
+    8-column tiles of d per CTA, 16-row K steps of w2's d_ff rows."""
+    return not (d % (8 * cluster) or d_ff % (16 * cluster)) and \
+        max(_cta_columns(d, d_ff, n_mels, cluster)) <= MAX_CTA_COLUMNS
+
+
+def cluster_size(d: int, d_ff: int, n_mels: int) -> int:
+    """K1's cluster size for these widths: the largest that splits every
+    matrix into whole tiles, 0 when none does.  The plan and the packed
+    weight stream both take it (a smaller cluster would only need more
+    shared memory per CTA)."""
+    return next((c for c in CLUSTER_SIZES if _splits(c, d, d_ff, n_mels)), 0)
+
+
+def _smem(t: int, s: int, n_layers: int, d: int, h: int, d_ff: int, n_mels: int,
+          cluster: int, rows: int, stages: int) -> int:
+    """Dynamic shared memory of one CTA (mirrors `layout` in csrc/ar_decode.cu)."""
+    kt = KEY_TILE
+    lda = max(d, n_mels, d_ff // cluster) + 8
+    nloc = max(_cdiv(_cdiv(t, kt), cluster), _cdiv(_cdiv(s, kt), cluster)) * kt
+    mtiles = _cdiv(_cdiv(s, kt), cluster)
+    vg = max(1, THREADS // (rows * d // 8))
+    wd, w3, wff, wm, _ = _cta_columns(d, d_ff, n_mels, cluster)
+    xb = _al16(max(4 * rows * d, 6 * rows * d, 8 * cluster * rows * h, 4 * rows * n_mels))
+    scores = 4 * rows * h * nloc + (4 * vg * rows * d if vg > 1 else 0)
+    red = max(_red_bytes(n, rows) for n in _cta_columns(d, d_ff, n_mels, cluster))
+    vb = w3 + 3 * wd + wff + d // cluster  # one layer's bias slices
+    vec = 4 * (n_layers * 6 * d + n_layers * vb + 2 * wd + wm)
+    small = 8 * (stages + 2) + 4 * (rows * mtiles + rows)  # mbarriers, key tiles
+    return (_al16(4 * rows * d) + _al16(2 * 16 * lda) + 2 * xb + _al16(max(scores, red))
+            + stages * STAGE_BYTES + _al16(vec) + _al16(small))
+
+
+def launch_plan(b: int, t: int, s: int, n_layers: int, d: int, n_heads: int, d_ff: int,
+                n_mels: int, pe_len: int) -> Plan:
+    """K1's launch plan for B rows, T steps over S memory frames; raises
+    ValueError for a shape the kernel does not take.  The cluster is
+    `cluster_size`, rows go to as few clusters as fit (at most MAX_ROWS
+    each), then the ring is as deep as fits."""
+    if not 1 <= t <= pe_len:
+        raise ValueError(f"ar_decode kernel: max_len {t} outside the PE table (1..{pe_len})")
+    if b < 1 or s < 1 or n_layers < 1:
+        raise ValueError("ar_decode kernel: needs B, S and n_layers >= 1")
+    if d not in WIDTHS:
+        raise ValueError(f"ar_decode kernel: d={d} must be one of {WIDTHS}")
+    if d % n_heads or (d // n_heads) % 8:
+        raise ValueError(f"ar_decode kernel: head width {d}/{n_heads} must be a multiple of 8")
+    if n_mels % 16 or d_ff % 16:
+        raise ValueError(f"ar_decode kernel: n_mels={n_mels} and d_ff={d_ff} must be "
+                         "multiples of 16")
+    c = cluster_size(d, d_ff, n_mels)
+    groups = _cdiv(b, MAX_ROWS)
+    while c and groups <= b:
+        rows = _cdiv(b, groups)
+        for stages in RING_STAGES:
+            smem = _smem(t, s, n_layers, d, n_heads, d_ff, n_mels, c, rows, stages)
+            if smem <= kernels.MAX_SMEM:
+                return Plan(c, rows, _cdiv(b, rows), KEY_TILE, stages, STAGE_BYTES, smem)
+        groups += 1
+    raise ValueError(f"ar_decode kernel: no cluster of {CLUSTER_SIZES} takes d={d}, d_ff={d_ff}, "
+                     f"T={t}, S={s}, {n_layers} layers within {kernels.MAX_SMEM} bytes of "
+                     "shared memory")
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"ar_decode kernel: {msg}")
+
+
+UNSCHEDULABLE = -2  # ar_decode_launch's code for a cluster the card cannot place
 
 
 def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
@@ -190,30 +370,35 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
     _check(w.wqkv.shape == (L, d, 3 * d), f"wqkv {tuple(w.wqkv.shape)} vs L={L}, d={d}")
     _check(w.w2.shape == (L, d_ff, d) and w.ln.shape == (L, 3, 2, d), "layer shapes")
     _check(w.prenet_w1.shape == (n_mels, d), "prenet shape")
-    _check(d % h == 0 and (d // h) % 8 == 0, "head width must be a multiple of 8")
-    _check(d % 8 == 0 and d_ff % 8 == 0 and n_mels % 8 == 0,
-           "d, d_ff and n_mels must be multiples of 8")
-    _check(d <= _THREADS, f"d={d} exceeds {_THREADS}")
-    _check(1 <= max_len <= w.pe.shape[0], f"max_len {max_len} outside the PE table")
-    smem = smem_bytes(max_len, s, d, h, d_ff, n_mels)
-    _check(smem <= kernels.MAX_SMEM, f"needs {smem} B of shared memory")
+    plan = launch_plan(b, max_len, s, L, d, h, d_ff, n_mels, w.pe.shape[0])
+
+    ws = w.stream
+    _check(ws is not None and ws.shape[0] == plan.cluster,
+           "no weight stream for this cluster: pack the weights with pack_decoder")
+    _check(ws.device == dev and ws.dtype == bf16 and ws.is_contiguous(),
+           f"the weight stream must be contiguous bf16 on {dev}")
 
     kcache = torch.empty(L, b, max_len, d, dtype=bf16, device=dev)
     vcache = torch.empty_like(kcache)
     out = torch.empty(b, max_len, n_mels, dtype=torch.float32, device=dev)
     lib = kernels.library("ar_decode")
     ptrs = [t.data_ptr() for t in (
-        w.prenet_w1, w.prenet_b1, w.prenet_w2, w.prenet_b2,
-        w.wqkv, w.bqkv, w.wo, w.bo, w.wcq, w.bcq, w.wco, w.bco,
-        w.w1, w.b1, w.w2, w.b2, w.ln, w.mel_w, w.mel_b, w.pe,
-        mem_k, mem_v, mem_bias, kcache, vcache, out,
+        ws, w.prenet_b1, w.prenet_b2, w.bqkv, w.bo, w.bcq, w.bco, w.b1, w.b2,
+        w.ln, w.mel_b, w.pe, mem_k, mem_v, mem_bias, kcache, vcache, out,
     )]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ar_decode_launch(
             *[ctypes.c_void_p(p) for p in ptrs],
-            b, max_len, s, L, d, h, d_ff, n_mels, ctypes.c_void_p(stream),
+            ws.shape[1], b, max_len, s, L, d, h, d_ff, n_mels,
+            plan.cluster, plan.rows, plan.groups, plan.key_tile, plan.stages,
+            plan.stage_bytes, plan.smem, ctypes.c_void_p(stream),
         )
+    if err == UNSCHEDULABLE:
+        raise RuntimeError(
+            f"ar_decode kernel: this card cannot schedule a cluster of {plan.cluster} CTAs "
+            f"with {plan.smem} bytes of shared memory each (cudaOccupancyMaxActiveClusters "
+            "returned 0)")
     kernels.raise_on_error("ar_decode", err, lib)
     launches += 1
     return out
