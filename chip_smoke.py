@@ -11,7 +11,12 @@ and each row's valid frames, from the pipeline; K2 also on a 5-frame
 utterance, shorter than its halo), reports each K2 stage's TFLOP/s and share
 of its bound and K1's per-step stream bound, then drives the one-shot text ->
 wav path (`synthesize_batch`, `synthesize`) of a pipeline with random
-weights made from a seed, and checks that every kernel of that path launched.  Any failed phase raises and the
+weights made from a seed, and checks that every kernel of that path launched.
+Phase 5 holds K1 launched chunk by chunk from its carry bit for bit against
+the one-shot launch, then drives `stream` (time to first audio, ms per
+chunk, RTF) and checks its wav and its launches; phase 6 serves the pipeline
+through the port's HTTP entry point and `DynamicBatcher` (4 concurrent
+`/tts`, one `/tts/stream`, `/healthz`).  Any failed phase raises and the
 script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
@@ -27,10 +32,13 @@ sheet: 3.35 TB/s, 989 TFLOP/s dense).
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import threading
 import time
 import traceback
+import urllib.request
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
@@ -44,6 +52,11 @@ K1_TOL_MEAN, K1_TOL_MAX = 1e-2, 0.1
 # rounding points, f32 sums in another order; a rare flipped bf16 rounding
 # of a conv input moves one sample by ~1e-3
 K2_TOL_MAX = 5e-3
+
+# streamed against one-shot audio: the JAX package's own bound
+# (tests/test_pipeline.py), which tests/test_torch_stream.py holds on the CPU
+STREAM_TOL_MAX = 5e-3
+CHUNK, CONTEXT = 32, 16
 
 TEXTS = [  # 40-60 characters each: phoneme bucket 64 -> frame bucket 1024
     "今天天气很好我们一起去公园散步然后在湖边的咖啡馆喝一杯咖啡再慢慢走回家吃晚饭",
@@ -180,7 +193,7 @@ def phase_k1(cfg, shapes, dev, gen):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ref = k1.ar_decode_plain(w, mk, mv, bias, t)
+        ref = k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t)[1]
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = (out - ref).abs()
@@ -332,6 +345,226 @@ def phase_pipeline(pipe):
     return launches, row
 
 
+# ---- phase 5: streaming -----------------------------------------------------
+
+
+def k1_chain(w, mk, mv, bias, t: int, chunk: int):
+    """K1 launched chunk by chunk from a fresh carry -> mel [B, t, n_mels]."""
+    import torch
+
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+
+    carry = k1.init_carry(w, mk.shape[1], t)
+    mels = []
+    for pos in range(0, t, chunk):
+        carry, mel = k1.ar_decode_chunk(w, mk, mv, bias, carry, pos, min(chunk, t - pos))
+        mels.append(mel)
+    return torch.cat(mels, dim=1)
+
+
+def stream_launches(pipe, tph: int, need: int):
+    """(K1, K2) launches that stream(TEXTS[0]) must make: a run per frame
+    bucket it tries, each decoding chunk by chunk as far as its windows need,
+    four MRFs per vocoded window."""
+    from sambert_hifigan_tpu_torch.text.frontend import pick_bucket
+
+    buckets = pipe.cfg.runtime.frame_buckets
+    runs = [pipe._initial_bucket(tph, 1.0)]
+    if need > runs[0] and runs[0] < max(buckets):
+        runs.append(pick_bucket(min(need, max(buckets)), buckets))
+    k1 = k2 = 0
+    for i, t in enumerate(runs):
+        total = min(need, t)
+        last = i == len(runs) - 1
+        k1 += math.ceil(max(min(CHUNK + CONTEXT, t), total if last else 0) / CHUNK)
+        k2 += len(pipe.mrf_weights) * (math.ceil(total / CHUNK) if last else 1)
+    return k1, k2
+
+
+def first_chunk_breakdown(pipe, text: str):
+    """Device ms of what the first stream chunk enqueues, each timed alone
+    with CUDA events: the encode, the memory K/V, K1 up to the first
+    window's right context (a fresh carry each time) and one window's
+    vocode."""
+    from sambert_hifigan_tpu_torch.models.ar_decoder import (
+        ar_decode_chunk, decode_memory, init_packed_carry)
+
+    tph, args = pipe._frontend_args([text])
+    t = pipe._initial_bucket(tph, 1.0)
+    controls = (1.0, 0.0, 1.0)
+    va = pipe._encode(args, t, *controls)
+    dec = pipe.acoustic.ar_decoder
+    memory = decode_memory(dec, va.hvar, ~va.frame_mask, pipe.decode_weights)
+
+    def k1_first():
+        carry = init_packed_carry(pipe.decode_weights, 1, t)
+        for pos in range(0, CHUNK + CONTEXT, CHUNK):
+            carry, _ = ar_decode_chunk(pipe.decode_weights, memory, carry, pos, CHUNK)
+
+    window = memory.mem_k.new_zeros(1, CHUNK + 2 * CONTEXT, pipe.cfg.audio.n_mels).float()
+    return dict(
+        encode_ms=cuda_ms(lambda: pipe._encode(args, t, *controls), reps=5),
+        memory_ms=cuda_ms(lambda: decode_memory(dec, va.hvar, ~va.frame_mask,
+                                                pipe.decode_weights), reps=5),
+        k1_ms=cuda_ms(k1_first, reps=3),
+        k1_steps=math.ceil((CHUNK + CONTEXT) / CHUNK) * CHUNK,
+        vocode_window_ms=cuda_ms(lambda: pipe.vocode(window), reps=5))
+
+
+def phase_stream(pipe, cfg, dev, gen, k1_shapes):
+    import numpy as np
+    import torch
+
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+
+    # (a) chained K1 against one-shot K1, bit for bit, at full width
+    for name, b, t, valid in k1_shapes:
+        w, mk, mv, bias = k1_inputs(cfg, b, t, valid, gen, dev)
+        one = k1.ar_decode(w, mk, mv, bias, t)
+        for chunk in (CHUNK, 48):
+            same = torch.equal(k1_chain(w, mk, mv, bias, t, chunk), one)
+            log(f"[stream] K1 {name} (B={b}, T=S={t}) in chunks of {chunk}: "
+                f"torch.equal to the one-shot launch {same}")
+            if not same:
+                raise AssertionError(f"chained K1 differs from one-shot K1 at {name}, "
+                                     f"chunk {chunk}")
+
+    # (b) a warm stream: the first one pays the first calls
+    text = TEXTS[0]
+    full = pipe.synthesize(text)
+    list(pipe.stream(text, chunk_frames=CHUNK, context_frames=CONTEXT))
+    torch.cuda.synchronize()
+    k1.launches = 0
+    k2.launches = 0
+    t0 = time.perf_counter()
+    chunks, at = [], []
+    for c in pipe.stream(text, chunk_frames=CHUNK, context_frames=CONTEXT):
+        chunks.append(c)
+        at.append(time.perf_counter() - t0)
+    launches = {"ar_decode": k1.launches, "mrf": k2.launches}
+    wall = at[-1]
+    streamed = np.concatenate(chunks)
+    audio_s = len(streamed) / pipe.cfg.audio.sample_rate
+    later = np.diff(at)
+    # (c) the streamed wav against one-shot synthesize
+    tph, _ = pipe._frontend_args([text])
+    want = stream_launches(pipe, tph, len(full) // pipe.hop)
+    diff = float(np.abs(streamed - full).max()) if streamed.shape == full.shape else None
+    row = dict(text_chars=len(text), chunk=CHUNK, context=CONTEXT, chunks=len(chunks),
+               frames=len(full) // pipe.hop, first_chunk_ms=at[0] * 1e3,
+               later_chunk_ms=float(later.mean()) * 1e3 if len(later) else None,
+               wall_ms=wall * 1e3, audio_s=audio_s, rtf=wall / audio_s,
+               max_abs_diff_vs_synthesize=diff, launches=launches,
+               expected_launches={"ar_decode": want[0], "mrf": want[1]},
+               first_chunk_device=first_chunk_breakdown(pipe, text))
+    log("[stream]", json.dumps(row))
+    if streamed.shape != full.shape:
+        raise AssertionError(f"streamed wav {streamed.shape} != synthesize {full.shape}")
+    if not np.isfinite(streamed).all():
+        raise AssertionError("non-finite samples in the streamed wav")
+    if not diff <= STREAM_TOL_MAX:
+        raise AssertionError(f"streamed wav departs from synthesize by {diff}")
+    # (d) every decoded chunk went through K1, every window through K2
+    if (launches["ar_decode"], launches["mrf"]) != want:
+        raise AssertionError(f"stream launches {launches}, expected {want}")
+    return launches, row
+
+
+# ---- phase 6: serving -------------------------------------------------------
+
+
+def phase_serving(pipe):
+    import io
+    import wave
+
+    import numpy as np
+
+    from sambert_hifigan_tpu_torch.serve import make_server
+    from sambert_hifigan_tpu_torch.serving import DynamicBatcher
+
+    lengths = {text: len(pipe.synthesize(text)) for text in TEXTS}
+    calls = []  # (batch size, ms) of each synthesize_batch the worker runs
+
+    class Timed:
+        def synthesize_batch(self, texts, **controls):
+            t0 = time.perf_counter()
+            out = pipe.synthesize_batch(texts, **controls)
+            calls.append((len(texts), (time.perf_counter() - t0) * 1e3))
+            return out
+
+        def stream(self, *args, **kwargs):
+            return pipe.stream(*args, **kwargs)
+
+    batcher = DynamicBatcher(Timed(), max_batch=4, max_wait_ms=50)
+    httpd = make_server(batcher, "127.0.0.1", 0, pipe.cfg.audio.sample_rate, 300.0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, body):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.read(), time.perf_counter() - t0
+
+    def burst():
+        """The four texts as concurrent /tts requests."""
+        results = [None] * len(TEXTS)
+        go = threading.Barrier(len(TEXTS))
+
+        def client(i):
+            go.wait()
+            try:
+                results[i] = post("/tts", {"text": TEXTS[i]})
+            except Exception as e:  # noqa: BLE001 — reported below
+                results[i] = e
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(TEXTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return results
+
+    try:
+        results = burst()  # the worker thread's first calls
+        fused = batcher.stats()
+        again = burst()
+        stream_body, stream_s = post("/tts/stream", {"text": TEXTS[0], "chunk_frames": CHUNK})
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        server.join()
+    latencies = []
+    for r in results + again:
+        if isinstance(r, Exception):
+            raise AssertionError(f"/tts failed: {r!r}")
+    for text, (body, secs) in zip(TEXTS * 2, results + again):
+        with wave.open(io.BytesIO(body)) as w:
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), "<i2")
+        latencies.append(secs * 1e3)
+        if n != lengths[text] or pcm.size != n:
+            raise AssertionError(f"/tts gave {n} samples, synthesize {lengths[text]}")
+    stream_n = (len(stream_body) - 44) // 2
+    row = dict(tts_ms=latencies[:len(TEXTS)], tts_ms_second_burst=latencies[len(TEXTS):],
+               synthesize_batch_calls=calls, stream_ms=stream_s * 1e3, stream_samples=stream_n,
+               batches_run=fused["batches_run"], requests_served=fused["requests_served"],
+               mean_batch_size=fused["mean_batch_size"], healthz=health)
+    log("[serving]", json.dumps(row))
+    if stream_body[:4] != b"RIFF" or stream_n != lengths[TEXTS[0]]:
+        raise AssertionError(f"/tts/stream gave {stream_n} samples, want {lengths[TEXTS[0]]}")
+    if fused["requests_served"] != len(TEXTS) or fused["batches_run"] >= len(TEXTS):
+        raise AssertionError(f"the batcher fused no batch of more than one request: {fused}")
+    if health.get("ok") is not True:
+        raise AssertionError(f"/healthz said {health}")
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -372,13 +605,16 @@ def main() -> int:
     cfg = default_config()
     gen = torch.Generator().manual_seed(0)
     pipe = build_pipeline_from_random_init(cfg, seed=0)
-    k1_rows = phase_k1(cfg, K1_SHAPES + (main_path_shape(pipe),), dev, gen)
+    main_shape = main_path_shape(pipe)
+    k1_rows = phase_k1(cfg, K1_SHAPES + (main_shape,), dev, gen)
     if k1_rows["B16-T2048"]["plan"]["groups"] < 2:
         raise AssertionError("K1 at B=16, T=2048 ran on one cluster, not two")
     k2_rows = phase_k2(pipe, 1024, (1, 2, 4), gen, dev)
     # a short utterance: T = 40 at stage 0, under the k = 11 chain's halo
     phase_k2(pipe, 5, (1, 4), gen, dev, timed=False)
     launches, _ = phase_pipeline(pipe)
+    stream_launch_counts, _ = phase_stream(pipe, cfg, dev, gen, (K1_SHAPES[0], main_shape))
+    phase_serving(pipe)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -386,14 +622,16 @@ def main() -> int:
         {"name": "ar_decode", "route": "cuda",
          "source": "sambert_hifigan_tpu_torch/csrc/ar_decode.cu",
          "replaces": "sambert_hifigan_tpu/ops/pallas/decode_kernel.py:396",
-         "launches": launches["ar_decode"], "max_abs_err": k1_main["max_abs_err"],
+         "launches": launches["ar_decode"],
+         "launches_stream": stream_launch_counts["ar_decode"],
+         "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
          "library_ms": None},
         {"name": "mrf", "route": "cuda",
          "source": "sambert_hifigan_tpu_torch/csrc/mrf.cu",
          "replaces": "sambert_hifigan_tpu/ops/pallas/mrf_kernel.py:183",
-         "launches": launches["mrf"],
+         "launches": launches["mrf"], "launches_stream": stream_launch_counts["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -403,7 +641,8 @@ def main() -> int:
     ]}
     log(f"[kernels] K1 at the main path's shape (B={k1_main['B']}, T=S={k1_main['T']}, "
         f"valid frames {list(k1_main['valid'].values())}); K2 summed over the four stages "
-        "at B=4, T=1024 frames (one vocode of the main path)")
+        "at B=4, T=1024 frames (one vocode of the main path); launches_stream: the "
+        "launches of one stream(TEXTS[0])")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

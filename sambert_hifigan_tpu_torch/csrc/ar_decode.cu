@@ -4,12 +4,18 @@
 // Replaces: sambert_hifigan_tpu/ops/pallas/decode_kernel.py, pallas_ar_decode
 // (body _decode_kernel), the Pallas TPU mega-kernel of the JAX package.
 //
-// What it computes, per step t and batch row b (zero start frame):
+// What it computes, per step t = pos0 .. pos0 + steps - 1 and batch row b
+// (one chunk of the decode; the whole decode is the chunk pos0 = 0,
+// steps = T, where T is the caches' capacity):
 //   x = bf16(prenet2(bf16(relu(prenet1(bf16(prev_mel)))))) + pe[t]
 //   per layer l: fused QKV; k, v -> bf16 cache row t; causal self-attention
 //   over cache rows 0..t; LN; cross-attention over the precomputed memory K/V
 //   with a -1e9 bias on padded frames; LN; FFN (ReLU); LN (eps 1e-5)
-//   prev_mel = mel_proj(bf16(x)) -> out[b, t]
+//   prev_mel = mel_proj(bf16(x)) -> out[b, t - pos0]
+// prev_mel is zero at t = 0 and, at t = pos0 > 0, the carried frame before
+// the chunk (the f32 value the previous chunk's mel exchange held).  The
+// caches persist between chunks in device memory: a chunk reads rows 0..t
+// and writes row t, so chained chunks run the same steps as one launch.
 // with the Pallas kernel's rounding points: bf16 weights and matmul inputs,
 // f32 accumulation, q scaled by 1/sqrt(dh) before its bf16 cast, each q*k
 // product rounded to bf16 before the sum over the head, f32 softmax whose
@@ -112,10 +118,12 @@ struct Params {
   const bf16* memk;  // [L, B, S, D]
   const bf16* memv;
   const float* membias;  // [B, S]
-  bf16* kcache;  // [L, B, T, D]
+  const float* prev;  // [B, NMEL]: the frame before pos0
+  bf16* kcache;  // [L, B, T, D]: T is the capacity
   bf16* vcache;
-  float* out;  // [B, T, NMEL]
+  float* out;  // [B, steps, NMEL]
   int stride, B, T, S, L, D, H, FF, NMEL;
+  int pos0, steps;  // this launch's first step and number of steps
   int C, R, NS;  // cluster size, batch rows per cluster, ring stages
 };
 
@@ -849,10 +857,14 @@ __global__ void __launch_bounds__(NT, 1) ar_decode_kernel(Params p) {
   cluster_sync();  // every peer runs before anyone writes to its shared memory
 
   int c0, n;
-  for (int t = 0; t < T; ++t) {
+  for (int t = p.pos0; t < p.pos0 + p.steps; ++t) {
     const float pe_c = p.pe[(size_t)t * D + tid % D];  // used after the prenet
-    // prenet: A = bf16(prev mel), zero at t = 0
-    if (t > 0) round_rows(A, lda, c.xin(), p.NMEL, nr);
+    // prenet: A = bf16(prev mel): the last exchange's, the carried frame at
+    // the chunk's first step, zero at t = 0
+    if (t > p.pos0)
+      round_rows(A, lda, c.xin(), p.NMEL, nr);
+    else if (t > 0)
+      round_rows(A, lda, p.prev + (size_t)c.b0 * p.NMEL, p.NMEL, nr);
     col_split(D, rank, C, c0, n);
     float* dst = c.xout();
     product(g, p, 0, A, lda, vpre, u, R, nr, C, [&](int r, int col, float2 v, int k) {
@@ -949,8 +961,8 @@ __global__ void __launch_bounds__(NT, 1) ar_decode_kernel(Params p) {
             [&](int r, int col, float2 v, int k) {
               push2(c, dst, p.NMEL, r, c0 + col, v, k);
               if (k == 0)
-                *reinterpret_cast<float2*>(p.out + ((size_t)(c.b0 + r) * T + t) * p.NMEL + c0 +
-                                           col) = v;
+                *reinterpret_cast<float2*>(
+                    p.out + ((size_t)(c.b0 + r) * p.steps + t - p.pos0) * p.NMEL + c0 + col) = v;
             });
     c.sync(nr * p.NMEL * 4);
   }
@@ -968,14 +980,16 @@ extern "C" const char* error_string(int err) {
 // The plan (cluster size C, rows per cluster R, clusters `groups`, key tile,
 // ring stages and stage bytes, shared memory per CTA) comes from
 // ops/ar_decode.py's launch_plan and is checked here against this file's own
-// layout.  Returns 0, a cudaError_t, or UNSCHEDULABLE when
-// cudaOccupancyMaxActiveClusters finds no place for one cluster.
+// layout.  The launch decodes steps [pos0, pos0 + steps) of the T the caches
+// hold; a chunk outside [0, T) is refused.  Returns 0, a cudaError_t, or
+// UNSCHEDULABLE when cudaOccupancyMaxActiveClusters finds no place for one
+// cluster.
 extern "C" int ar_decode_launch(
     const void* stream, const void* pb1, const void* pb2, const void* bqkv, const void* bo,
     const void* bcq, const void* bco, const void* b1, const void* b2, const void* ln,
     const void* melb, const void* pe, const void* memk, const void* memv, const void* membias,
-    void* kcache, void* vcache, void* out,
-    int stride, int B, int T, int S, int L, int D, int H, int FF, int NMEL,
+    const void* prev, void* kcache, void* vcache, void* out,
+    int stride, int B, int T, int S, int L, int D, int H, int FF, int NMEL, int pos0, int steps,
     int C, int R, int groups, int key_tile, int stages, int stage_bytes, int smem,
     void* cuda_stream) {
   Params p;
@@ -990,16 +1004,19 @@ extern "C" int ar_decode_launch(
   p.memk = static_cast<const bf16*>(memk);
   p.memv = static_cast<const bf16*>(memv);
   p.membias = static_cast<const float*>(membias);
+  p.prev = static_cast<const float*>(prev);
   p.kcache = static_cast<bf16*>(kcache);
   p.vcache = static_cast<bf16*>(vcache);
   p.out = static_cast<float*>(out);
   p.stride = stride; p.B = B; p.T = T; p.S = S; p.L = L; p.D = D; p.H = H; p.FF = FF; p.NMEL = NMEL;
+  p.pos0 = pos0; p.steps = steps;
   p.C = C; p.R = R; p.NS = stages;
 
   // the host plan and this file must agree on the layout
   const bool pow2_c = C == 1 || C == 2 || C == 4 || C == 8 || C == 16;
   const bool pow2_d = D == 32 || D == 64 || D == 128 || D == 256 || D == 512;
   if (!pow2_c || !pow2_d || B < 1 || T < 1 || S < 1 || L < 1 || R < 1 || R > MAX_ROWS ||
+      pos0 < 0 || steps < 1 || pos0 + steps > T ||
       groups != cdiv(B, R) || key_tile != KEY_TILE || stage_bytes != STAGE_BYTES ||
       stages < 2 || stages > 8 || D % (8 * C) || FF % (16 * C) ||
       NMEL % 16 || D % H || (D / H) % 8 ||

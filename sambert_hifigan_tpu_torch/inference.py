@@ -2,9 +2,11 @@
 
   python -m sambert_hifigan_tpu_torch.inference --text "你好世界" --output out.wav \
       [--seed 0] [--duration-scale 1.0] [--pitch-shift 0.0] [--energy-scale 1.0] \
-      [--benchmark] [--device cpu]
+      [--stream] [--chunk-frames 32] [--benchmark] [--device cpu]
 
-Runs on the CUDA card unless --device cpu is given.
+With --stream the wav is synthesized chunk by chunk (`TTSPipeline.stream`)
+and the chunks are written out together.  Runs on the CUDA card unless
+--device cpu is given.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ def parse_args(argv=None):
     p.add_argument("--duration-scale", type=float, default=1.0)
     p.add_argument("--pitch-shift", type=float, default=0.0)
     p.add_argument("--energy-scale", type=float, default=1.0)
+    p.add_argument("--stream", action="store_true")
+    p.add_argument("--chunk-frames", type=int, default=32)
     p.add_argument("--benchmark", action="store_true",
                    help="synthesize twice and report the warm RTF")
     p.add_argument("--seed", type=int, default=0)
@@ -31,6 +35,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    import numpy as np
     import torch
 
     from .config import default_config, load_config
@@ -49,7 +54,15 @@ def main(argv=None):
 
     def timed():
         t0 = time.perf_counter()
-        wav = pipe.synthesize(args.text, **controls)
+        if args.stream:
+            chunks = []
+            for i, chunk in enumerate(pipe.stream(args.text, args.chunk_frames, **controls)):
+                chunks.append(chunk)
+                print(f"[inference] chunk {i}: {chunk.shape[0]} samples "
+                      f"(+{time.perf_counter() - t0:.3f}s)")
+            wav = np.concatenate(chunks)
+        else:
+            wav = pipe.synthesize(args.text, **controls)
         if pipe.device.type == "cuda":
             torch.cuda.synchronize(pipe.device)
         return wav, time.perf_counter() - t0

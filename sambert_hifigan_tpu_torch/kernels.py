@@ -30,7 +30,7 @@ MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ar_decode": ("ar_decode_launch", [_P] * 18 + [_I] * 16 + [_P]),
+    "ar_decode": ("ar_decode_launch", [_P] * 19 + [_I] * 18 + [_P]),
     "mrf": ("mrf_launch", [_P] * 8 + [_I] * 5 + [_P] * 5),
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -4,22 +4,24 @@ to Hvar, mel projection; every matrix xavier.
 
 Inference decodes from a zero start frame over packed weights
 (`pack_decoder`, once per pipeline) and cross-attention K/V projected once
-per utterance (`precompute_memory_packed`).  `ar_decode` routes every CUDA
-tensor to the K1 kernel (ops/ar_decode.py) and every CPU tensor to its plain
-version; a shape the kernel does not take raises.  Teacher forcing belongs to
-the training slice.
+per utterance (`precompute_memory_packed`, `decode_memory`).  `ar_decode`
+decodes every frame in one call; a stream calls `ar_decode_chunk` from
+`init_packed_carry`, chunk after chunk, with the same bits.  Both route
+every CUDA tensor to the K1 kernel (ops/ar_decode.py) and every CPU tensor
+to its plain version; a shape the kernel does not take raises.  Teacher
+forcing belongs to the training slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import DecoderConfig
 from ..ops import ar_decode as k1
-from ..ops.ar_decode import NEG_INF, DecodeWeights
+from ..ops.ar_decode import NEG_INF, DecodeCarry, DecodeWeights
 from .layers import Linear, xavier_uniform_
 from .transformer import TransformerDecoderLayer, sinusoidal_positional_encoding
 
@@ -107,6 +109,50 @@ def precompute_memory_packed(dec: PNCAARDecoder, hvar: torch.Tensor) -> Tuple[to
     return torch.stack(ks), torch.stack(vs)
 
 
+class DecodeMemory(NamedTuple):
+    """The decode's memory as K1 takes it: every layer's cross-attention K/V
+    [L, B, S, d] in the weights' dtype and the mask bias [B, S] f32 (0 on
+    frames, -1e9 on padding)."""
+
+    mem_k: torch.Tensor
+    mem_v: torch.Tensor
+    mem_bias: torch.Tensor
+
+
+@torch.no_grad()
+def decode_memory(
+    dec: PNCAARDecoder,
+    hvar: torch.Tensor,  # [B, S, d]
+    memory_key_padding_mask: Optional[torch.Tensor],  # [B, S] True = pad
+    weights: DecodeWeights,
+) -> DecodeMemory:
+    """Project the memory once per utterance, for every chunk of its decode."""
+    mem_k, mem_v = precompute_memory_packed(dec, hvar.float())
+    dt = weights.wqkv.dtype
+    b, s = hvar.shape[:2]
+    if memory_key_padding_mask is None:
+        mem_bias = torch.zeros(b, s, device=hvar.device)
+    else:
+        mem_bias = torch.where(memory_key_padding_mask, NEG_INF, 0.0).float()
+    return DecodeMemory(mem_k.to(dt).contiguous(), mem_v.to(dt).contiguous(),
+                        mem_bias.contiguous())
+
+
+def init_packed_carry(weights: DecodeWeights, batch: int, max_len: int) -> DecodeCarry:
+    """(prev_mel, k_cache, v_cache) before step 0, caches of capacity
+    `max_len` (the frame bucket)."""
+    return k1.init_carry(weights, batch, max_len)
+
+
+@torch.no_grad()
+def ar_decode_chunk(
+    weights: DecodeWeights, memory: DecodeMemory, carry: DecodeCarry, pos0: int, chunk: int,
+) -> Tuple[DecodeCarry, torch.Tensor]:
+    """Advance the decode by `chunk` frames from `carry` at position `pos0`
+    -> (carry', mel [B, chunk, n_mels] f32).  One K1 launch on the card."""
+    return k1.ar_decode_chunk(weights, *memory, carry, pos0, chunk)
+
+
 @torch.no_grad()
 def ar_decode(
     dec: PNCAARDecoder,
@@ -117,14 +163,5 @@ def ar_decode(
     weights: DecodeWeights,  # pack_decoder(dec, ...)
 ) -> torch.Tensor:
     """Autoregressive mel generation -> [B, max_len, n_mels] f32."""
-    mem_k, mem_v = precompute_memory_packed(dec, hvar.float())
-    dt = weights.wqkv.dtype
-    b, s = hvar.shape[:2]
-    if memory_key_padding_mask is None:
-        mem_bias = torch.zeros(b, s, device=hvar.device)
-    else:
-        mem_bias = torch.where(memory_key_padding_mask, NEG_INF, 0.0).float()
-    return k1.ar_decode(
-        weights, mem_k.to(dt).contiguous(), mem_v.to(dt).contiguous(),
-        mem_bias.contiguous(), max_len,
-    )
+    return k1.ar_decode(weights, *decode_memory(dec, hvar, memory_key_padding_mask, weights),
+                        max_len)

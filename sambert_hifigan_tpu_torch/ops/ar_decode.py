@@ -1,13 +1,16 @@
-"""K1: the whole autoregressive mel decode, T steps x L layers, in one launch.
+"""K1: the autoregressive mel decode, T steps x L layers, in one launch.
 
-`ar_decode` is the wrapper.  A CUDA tensor goes to the hand-written kernel in
-`csrc/ar_decode.cu` (or the call raises); a CPU tensor goes to
-`ar_decode_plain`, the same function in plain PyTorch.  There is no switch
-and no fallback.  The kernel is one launch for the whole batch on
-thread-block clusters; `launch_plan` computes its geometry on the host (the
-C code refuses a plan that does not match its own layout), `pack_stream`
-lays out each CTA's weight slices, and a cluster the card cannot schedule
-raises RuntimeError.
+`ar_decode_chunk` is the wrapper: it decodes `steps` frames from position
+`pos0` and a carry `(prev_mel, k_cache, v_cache)` (`init_carry`, the JAX
+package's `init_packed_carry`), so a stream decodes chunk by chunk; the
+one-shot `ar_decode` is the single chunk `pos0 = 0, steps = T` from a fresh
+carry.  A CUDA tensor goes to the hand-written kernel in `csrc/ar_decode.cu`
+(or the call raises); a CPU tensor goes to `ar_decode_plain`, the same
+function in plain PyTorch.  There is no switch and no fallback.  The kernel
+is one launch for the whole batch on thread-block clusters; `launch_plan`
+computes its geometry on the host (the C code refuses a plan that does not
+match its own layout), `pack_stream` lays out each CTA's weight slices, and
+a cluster the card cannot schedule raises RuntimeError.
 
 Numerics (the contract of the JAX package's Pallas kernel, which this
 replaces): matmul inputs and weights bf16 with f32 accumulation, biases,
@@ -15,8 +18,8 @@ LayerNorm and softmax in f32, q scaled by 1/sqrt(dh) before its bf16 cast,
 each q*k product rounded to bf16 before the f32 sum over the head (the
 Pallas kernel's `(keys * q).astype(bf16)` ahead of its head-group matmul),
 softmax probabilities cast to bf16 before the value product, bf16 K/V caches
-and memory K/V, and a zero start frame.  The residual stream stays f32.
-Given float32 weights the plain version rounds nowhere and is the packed
+and memory K/V, and a zero frame before step 0.  The residual stream stays
+f32.  Given float32 weights the plain version rounds nowhere and is the packed
 decode step of the JAX package in f32.
 """
 
@@ -30,7 +33,7 @@ import torch
 
 from .. import kernels
 
-launches = 0  # kernel launches through `ar_decode` (never the plain version)
+launches = 0  # kernel launches through `ar_decode_chunk` (never the plain version)
 
 NEG_INF = -1e9
 
@@ -114,6 +117,26 @@ def pack_stream(w: DecodeWeights, cluster: int) -> torch.Tensor:
     return out
 
 
+class DecodeCarry(NamedTuple):
+    """What one chunk of the decode hands the next: the last frame and the
+    self-attention caches, whose length T is the capacity (the frame
+    bucket).  A chunk updates the caches in place; the carry it was given
+    is consumed."""
+
+    prev_mel: torch.Tensor  # [B, n_mels] f32, zero before the first step
+    k_cache: torch.Tensor  # [L, B, T, d] in the weights' dtype
+    v_cache: torch.Tensor
+
+
+def init_carry(w: DecodeWeights, batch: int, max_len: int) -> DecodeCarry:
+    """The carry before step 0, on the weights' device: a zero frame and
+    zeroed caches of capacity `max_len`."""
+    n_layers, d = w.wqkv.shape[:2]
+    cache = torch.zeros(n_layers, batch, max_len, d, dtype=w.wqkv.dtype, device=w.wqkv.device)
+    return DecodeCarry(torch.zeros(batch, w.mel_w.shape[1], device=w.wqkv.device), cache,
+                       torch.zeros_like(cache))
+
+
 def ar_decode(
     w: DecodeWeights,
     mem_k: torch.Tensor,  # [L, B, S, d], the kernel dtype
@@ -122,12 +145,31 @@ def ar_decode(
     max_len: int,
 ) -> torch.Tensor:
     """Decode `max_len` frames from a zero start frame -> mel [B, max_len,
-    n_mels] f32."""
+    n_mels] f32: one chunk over a fresh carry."""
+    carry = init_carry(w, mem_k.shape[1], max_len)
+    return ar_decode_chunk(w, mem_k, mem_v, mem_bias, carry, 0, max_len)[1]
+
+
+def ar_decode_chunk(
+    w: DecodeWeights,
+    mem_k: torch.Tensor,
+    mem_v: torch.Tensor,
+    mem_bias: torch.Tensor,
+    carry: DecodeCarry,
+    pos0: int,
+    steps: int,
+) -> Tuple[DecodeCarry, torch.Tensor]:
+    """Decode steps pos0 .. pos0 + steps - 1 from `carry` -> (carry', mel
+    [B, steps, n_mels] f32).  Chained chunks give the bits of one decode."""
+    cap = carry.k_cache.shape[2]
+    if pos0 < 0 or steps < 1 or pos0 + steps > cap:
+        raise ValueError(f"ar_decode_chunk: steps [{pos0}, {pos0 + steps}) outside the "
+                         f"carry's capacity [0, {cap})")
     if mem_k.device.type == "cpu":
-        return ar_decode_plain(w, mem_k, mem_v, mem_bias, max_len)
+        return ar_decode_plain(w, mem_k, mem_v, mem_bias, carry, pos0, steps)
     if mem_k.device.type != "cuda":
         raise ValueError(f"ar_decode: unsupported device {mem_k.device}")
-    return _ar_decode_cuda(w, mem_k, mem_v, mem_bias, max_len)
+    return _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry, pos0, steps)
 
 
 def _rounder(dtype: torch.dtype):
@@ -150,35 +192,37 @@ def _scores(q: torch.Tensor, keys: torch.Tensor, rnd) -> torch.Tensor:
     return rnd(q[:, None] * keys).sum(-1).transpose(1, 2)
 
 
-def ar_decode_plain(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
+def ar_decode_plain(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int,
+                    steps: int) -> Tuple[DecodeCarry, torch.Tensor]:
     """Plain PyTorch version of K1: the packed per-frame step in a Python
-    loop, rounding where the kernel rounds when the weights are bf16."""
+    loop over steps pos0 .. pos0 + steps - 1, rounding where the kernel
+    rounds when the weights are bf16.  The caches hold each K/V row in the
+    weights' dtype (bf16 rows are already rounded) and are updated in
+    place."""
     rnd = _rounder(w.wqkv.dtype)
     L, b, s, d = mem_k.shape
     h = w.n_heads
     dh = d // h
-    n_mels = w.mel_w.shape[1]
     sq = math.sqrt(dh)
     f = lambda t: t.float()  # noqa: E731
     mk = mem_k.float().reshape(L, b, s, h, dh)
     mv = mem_v.float().reshape(L, b, s, h, dh)
-    ck = torch.zeros(L, b, max_len, h, dh, device=mem_k.device)
-    cv = torch.zeros_like(ck)
+    prev, ck, cv = carry
     bias = mem_bias.float()[:, None, :]
-    prev = torch.zeros(b, n_mels, device=mem_k.device)
     out = []
-    for t in range(max_len):
+    for t in range(pos0, pos0 + steps):
         x = torch.relu(rnd(prev) @ f(w.prenet_w1) + w.prenet_b1)
         x = rnd(x) @ f(w.prenet_w2) + w.prenet_b2 + w.pe[t]
         for l in range(L):
             qkv = rnd(x) @ f(w.wqkv[l]) + w.bqkv[l]
             q, k_t, v_t = qkv.split(d, dim=-1)
-            ck[l, :, t] = rnd(k_t).reshape(b, h, dh)
-            cv[l, :, t] = rnd(v_t).reshape(b, h, dh)
+            ck[l, :, t] = rnd(k_t)
+            cv[l, :, t] = rnd(v_t)
             qs = rnd(q / sq).reshape(b, h, dh)
-            sc = _scores(qs, ck[l, :, : t + 1], rnd)
+            sc = _scores(qs, ck[l, :, : t + 1].float().reshape(b, t + 1, h, dh), rnd)
             p = rnd(torch.softmax(sc, dim=-1))
-            sa = torch.einsum("bhs,bshd->bhd", p, cv[l, :, : t + 1]).reshape(b, d)
+            sa = torch.einsum("bhs,bshd->bhd", p,
+                              cv[l, :, : t + 1].float().reshape(b, t + 1, h, dh)).reshape(b, d)
             x = _layer_norm(x + rnd(sa) @ f(w.wo[l]) + w.bo[l], w.ln[l, 0])
             cq = rnd((rnd(x) @ f(w.wcq[l]) + w.bcq[l]) / sq).reshape(b, h, dh)
             cs = _scores(cq, mk[l], rnd) + bias
@@ -189,7 +233,7 @@ def ar_decode_plain(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
             x = _layer_norm(x + rnd(hid) @ f(w.w2[l]) + w.b2[l], w.ln[l, 2])
         prev = rnd(x) @ f(w.mel_w) + w.mel_b
         out.append(prev)
-    return torch.stack(out, dim=1)
+    return DecodeCarry(prev, ck, cv), torch.stack(out, dim=1)
 
 
 class Plan(NamedTuple):
@@ -351,9 +395,11 @@ def _check(cond: bool, msg: str) -> None:
 UNSCHEDULABLE = -2  # ar_decode_launch's code for a cluster the card cannot place
 
 
-def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
+def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, steps: int):
     global launches
     L, b, s, d = mem_k.shape
+    prev, kcache, vcache = carry
+    max_len = kcache.shape[2]
     h = w.n_heads
     d_ff = w.w1.shape[-1]
     n_mels = w.mel_w.shape[1]
@@ -370,6 +416,13 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
     _check(w.wqkv.shape == (L, d, 3 * d), f"wqkv {tuple(w.wqkv.shape)} vs L={L}, d={d}")
     _check(w.w2.shape == (L, d_ff, d) and w.ln.shape == (L, 3, 2, d), "layer shapes")
     _check(w.prenet_w1.shape == (n_mels, d), "prenet shape")
+    prev = prev.contiguous()  # the last frame of a chunk's mel is a strided view
+    _check(prev.device == dev and prev.dtype == torch.float32 and prev.shape == (b, n_mels),
+           f"prev_mel must be f32 [{b}, {n_mels}] on {dev}")
+    for t in (kcache, vcache):
+        _check(t.device == dev and t.dtype == bf16 and t.is_contiguous()
+               and t.shape == (L, b, max_len, d),
+               f"the caches must be contiguous bf16 [{L}, {b}, T, {d}] on {dev}")
     plan = launch_plan(b, max_len, s, L, d, h, d_ff, n_mels, w.pe.shape[0])
 
     ws = w.stream
@@ -378,19 +431,17 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
     _check(ws.device == dev and ws.dtype == bf16 and ws.is_contiguous(),
            f"the weight stream must be contiguous bf16 on {dev}")
 
-    kcache = torch.empty(L, b, max_len, d, dtype=bf16, device=dev)
-    vcache = torch.empty_like(kcache)
-    out = torch.empty(b, max_len, n_mels, dtype=torch.float32, device=dev)
+    out = torch.empty(b, steps, n_mels, dtype=torch.float32, device=dev)
     lib = kernels.library("ar_decode")
     ptrs = [t.data_ptr() for t in (
         ws, w.prenet_b1, w.prenet_b2, w.bqkv, w.bo, w.bcq, w.bco, w.b1, w.b2,
-        w.ln, w.mel_b, w.pe, mem_k, mem_v, mem_bias, kcache, vcache, out,
+        w.ln, w.mel_b, w.pe, mem_k, mem_v, mem_bias, prev, kcache, vcache, out,
     )]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ar_decode_launch(
             *[ctypes.c_void_p(p) for p in ptrs],
-            ws.shape[1], b, max_len, s, L, d, h, d_ff, n_mels,
+            ws.shape[1], b, max_len, s, L, d, h, d_ff, n_mels, pos0, steps,
             plan.cluster, plan.rows, plan.groups, plan.key_tile, plan.stages,
             plan.stage_bytes, plan.smem, ctypes.c_void_p(stream),
         )
@@ -401,4 +452,4 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, max_len: int) -> torch.Tensor:
             "returned 0)")
     kernels.raise_on_error("ar_decode", err, lib)
     launches += 1
-    return out
+    return DecodeCarry(out[:, -1], kcache, vcache), out

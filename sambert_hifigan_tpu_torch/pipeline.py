@@ -1,4 +1,4 @@
-"""End-to-end text -> waveform inference, one-shot.
+"""End-to-end text -> waveform inference, one-shot and streaming.
 
 FrontEnd (host numpy) -> acoustic inference (encoder + variance adaptor in
 plain PyTorch, the AR decode in kernel K1) -> HiFi-GAN vocoder (convolutions
@@ -11,6 +11,13 @@ runs to a frame bucket estimated from the text length; a batch whose
 predicted frames overflow the estimate is re-run once at the bucket that fits
 (durations are deterministic, so the re-run lands on the same totals).
 
+Streaming: `stream()` yields waveform chunks of `chunk_frames` frames as soon
+as their mel exists.  The AR decode runs in chunks (one K1 launch each, from
+the carry the last chunk left), and each chunk is vocoded from a window of
+`context_frames` margin on each side (HiFi-GAN's receptive field is finite),
+so the streamed audio matches `synthesize` to windowed-vocoding tolerance.
+The chained chunks give the one-shot decode's bits.
+
 The pipeline runs on the card unless it is given device="cpu"; on the CPU
 the kernels' plain versions run with f32 weights (the reference numerics).
 The plain-PyTorch layers around the kernels run in IEEE f32 on the card too:
@@ -21,15 +28,17 @@ from __future__ import annotations
 
 import contextlib
 import warnings
-from typing import List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from . import kernels
 from .config import TTSConfig
 from .kernels import kernel_dtype, resolve_device
 from .models.acoustic_model import AcousticOutput, SAMBERTAcousticModel, acoustic_inference
-from .models.ar_decoder import pack_decoder
+from .models.ar_decoder import ar_decode_chunk, decode_memory, init_packed_carry, pack_decoder
 from .models.hifigan import HiFiGANGenerator
 from .text.frontend import FrontEnd, pick_bucket
 from .weights import random_acoustic_model, random_generator
@@ -88,6 +97,14 @@ class TTSPipeline:
         est = int(tph * 12 * max(duration_scale, 1.0))
         return pick_bucket(min(est, max(buckets)), buckets)
 
+    def _encode(self, args, max_frames, duration_scale, pitch_shift, energy_scale):
+        """Encoder + variance adaptor only (everything before the AR
+        decoder): the streaming path runs this, then decodes in chunks."""
+        ph, tone, bound, pmask = args
+        with _ieee_f32():
+            return self.acoustic.encode(ph, tone, bound, max_frames, pmask, duration_scale,
+                                        pitch_shift, energy_scale)
+
     def _acoustic(self, args, max_frames, duration_scale, pitch_shift, energy_scale):
         ph, tone, bound, pmask = args
         with _ieee_f32():
@@ -105,6 +122,42 @@ class TTSPipeline:
                 f"({max_frames}); audio will be truncated - split the text "
                 "or enlarge runtime.frame_buckets"
             )
+
+    def warmup(
+        self,
+        max_frames: Optional[int] = None,
+        streaming: bool = False,
+        batch_buckets: bool = False,
+        chunk_frames: int = 32,
+        context_frames: int = 16,
+    ) -> None:
+        """Build the kernels, then run every (phoneme bucket, frame bucket)
+        pair once, so that no user request pays a first call (serving calls
+        this at startup).  With max_frames given, only that frame bucket
+        runs.  streaming=True also streams one text per phoneme bucket;
+        batch_buckets=True runs synthesize_batch at every
+        runtime.batch_buckets size at the smallest text bucket.  Nothing in
+        the port compiles per shape, so unlike the JAX package's warmup this
+        one has no decode-chunk graph to warm for every frame bucket."""
+        if self.device.type == "cuda":
+            kernels.build_all()
+        frame_buckets = [max_frames] if max_frames else list(self.cfg.runtime.frame_buckets)
+        texts = {
+            tph: "预" * max(1, tph - 2)  # fills the bucket exactly with BOS/EOS
+            for tph in self.cfg.runtime.phoneme_buckets
+        }
+        for tph, text in texts.items():
+            for tfrm in frame_buckets:
+                out = self.text_to_mel([text], max_frames=tfrm)
+                self.vocode(out.mel_pred)
+            if streaming:
+                for _ in self.stream(text, chunk_frames=chunk_frames,
+                                     context_frames=context_frames):
+                    pass
+        if batch_buckets:
+            text0 = texts[min(texts)]
+            for b in self.cfg.runtime.batch_buckets:
+                self.synthesize_batch([text0] * b)
 
     # ---- public API ----------------------------------------------------------
 
@@ -192,6 +245,118 @@ class TTSPipeline:
             np.asarray(wav_np[i, 0, : min(int(totals[i]), max_frames) * self.hop])
             for i in range(n)
         ]
+
+    # ---- streaming -----------------------------------------------------------
+
+    @torch.no_grad()
+    def stream(
+        self,
+        text: str,
+        chunk_frames: int = 32,
+        context_frames: int = 16,
+        duration_scale: float = 1.0,
+        pitch_shift: float = 0.0,
+        energy_scale: float = 1.0,
+    ) -> Iterator[np.ndarray]:
+        """Incremental synthesis: yield waveform chunks of chunk_frames * hop
+        samples as soon as their mel frames exist (the last chunk may be
+        shorter).
+
+        The first chunk comes after the encode and ~(chunk + context) decode
+        steps, with one host sync: the encode, the memory K/V, the first
+        decode chunks, the window and the first vocode are enqueued on the
+        estimated frame bucket, then the first wav and the total frame count
+        come back in one copy.  Only a bucket overflow restarts, exactly, at
+        the bucket that fits.  Later chunks cost one copy each.  The text is
+        one row, not padded to a batch bucket.  Grad mode is off whichever
+        thread resumes the generator."""
+        tph, args = self._frontend_args([text])
+        controls = (duration_scale, pitch_shift, energy_scale)
+        buckets = self.cfg.runtime.frame_buckets
+        max_frames = self._initial_bucket(tph, duration_scale)
+        run = _StreamRun(self, args, controls, max_frames, chunk_frames, context_frames)
+        first_wav, need = run.first_fetch()
+        if need > max_frames and max_frames < max(buckets):
+            # the truncated encode would change the decode: restart cleanly
+            max_frames = pick_bucket(min(need, max(buckets)), buckets)
+            run = _StreamRun(self, args, controls, max_frames, chunk_frames, context_frames)
+            first_wav, need = run.first_fetch()
+        self._warn_truncated(need, max_frames)
+        total = min(need, max_frames)
+        yield first_wav[: min(chunk_frames, total) * self.hop]
+        for start in range(chunk_frames, total, chunk_frames):
+            wav = run.window_wav(start, total).cpu().numpy()
+            yield wav[: min(chunk_frames, total - start) * self.hop]
+
+
+class _StreamRun:
+    """Device state of one streaming synthesis at a fixed frame bucket.
+
+    Decoded mel chunks stay on the device, vocode windows are assembled there
+    (concatenate, slice, zero the frames at or past the total, which also
+    stays on the device), so the host only waits for finished wav chunks."""
+
+    def __init__(self, pipe: TTSPipeline, args, controls, max_frames: int,
+                 chunk_frames: int, context_frames: int):
+        self.pipe = pipe
+        self.max_frames = max_frames
+        self.chunk = chunk_frames
+        self.context = context_frames
+        self.window = chunk_frames + 2 * context_frames
+        self.hop = pipe.hop
+        va = pipe._encode(args, max_frames, *controls)
+        with _ieee_f32():  # memory K/V projected once per utterance
+            self.memory = decode_memory(pipe.acoustic.ar_decoder, va.hvar, ~va.frame_mask,
+                                        pipe.decode_weights)
+        self.carry = init_packed_carry(pipe.decode_weights, 1, max_frames)
+        self.total_frames = va.total_frames
+        self.total_dev = va.total_frames.clamp(max=max_frames)  # masks window tails
+        self.chunks: List[torch.Tensor] = []  # [1, steps, n_mels] each
+        self.pos = 0  # frames decoded
+
+    def _ensure_decoded(self, need: int) -> None:
+        """Decode chunk by chunk until `need` frames exist; the last chunk
+        stops at the bucket."""
+        while self.pos < min(need, self.max_frames):
+            steps = min(self.chunk, self.max_frames - self.pos)
+            self.carry, mel = ar_decode_chunk(self.pipe.decode_weights, self.memory,
+                                              self.carry, self.pos, steps)
+            self.chunks.append(mel)
+            self.pos += steps
+
+    def _window_device(self, start: int) -> torch.Tensor:
+        """Vocode the window around [start, start + chunk) on the device;
+        returns the chunk's wav.  The window stops at the bucket's end, where
+        the one-shot vocode's convolutions pad (the JAX package fills it
+        with zero frames instead, which moves the last samples of a text
+        that fills its bucket)."""
+        lo = max(0, start - self.context)
+        n = min(self.window, self.max_frames - lo)
+        c0, c1 = lo // self.chunk, (lo + n - 1) // self.chunk
+        off = lo - c0 * self.chunk
+        seg = torch.cat(self.chunks[c0:c1 + 1], dim=1)[:, off:off + n]
+        # frames not decoded lie at or past the total: zeros, as the mask makes
+        # every frame there in the one-shot path
+        seg = F.pad(seg, (0, 0, 0, n - seg.shape[1]))
+        idx = lo + torch.arange(n, device=seg.device)
+        seg = seg * (idx < self.total_dev).to(seg.dtype)[None, :, None]
+        wav = self.pipe.vocode(seg)
+        s = (start - lo) * self.hop
+        return wav[0, 0, s:s + self.chunk * self.hop]
+
+    def first_fetch(self) -> Tuple[np.ndarray, int]:
+        """Enqueue everything up to the first vocoded chunk, then one copy
+        of (first wav, total frames)."""
+        self._ensure_decoded(self.chunk + self.context)
+        wav = self._window_device(0)
+        host = torch.cat([wav, self.total_frames.float()]).cpu().numpy()
+        return host[:-1], int(host[-1])
+
+    def window_wav(self, start: int, total: int) -> torch.Tensor:
+        """A later chunk: decode as far as its window's right context, then
+        vocode on the device."""
+        self._ensure_decoded(min(start + self.chunk + self.context, total))
+        return self._window_device(start)
 
 
 def build_pipeline_from_random_init(cfg: TTSConfig, seed: int = 0, device=None) -> TTSPipeline:

@@ -69,17 +69,16 @@ def test_k1_kernel_matches_plain_on_card(cuda_device, b):
     out = k1.ar_decode(w, mk, mv, bias, t)
     torch.cuda.synchronize()
     assert k1.launches == before + 1
-    ref = k1.ar_decode_plain(w, mk, mv, bias, t)
+    ref = _plain_one_shot(w, mk, mv, bias, t)
     err = (out - ref).abs()
     assert err.mean() < 5e-3 and err.max() < 5e-2, (err.mean().item(), err.max().item())
 
 
-def _k1_full_width(dev, b, t, n_layers):
-    """K1 and its plain version at the default decoder's widths (d 256, 8
+def _full_width_inputs(dev, b, t, n_layers):
+    """K1's weights and memory at the default decoder's widths (d 256, 8
     heads, d_ff 2048).  Suffix masks leave ~5% of the memory valid, so most
     key tiles are skipped; the last row of B > 1 has all its memory masked (a
-    uniform softmax, never skipped).  Tolerance as chip_smoke.py's K1 phase:
-    mean 1e-2, max 0.1.  Returns the launch plan."""
+    uniform softmax, never skipped)."""
     gen = torch.Generator().manual_seed(7)
     dec = p_ar.PNCAARDecoder(256, MELS, DecoderConfig(n_layers=n_layers, n_heads=8, d_ff=2048,
                                                       dropout=0.0, max_len=max(512, t)))
@@ -95,12 +94,22 @@ def _k1_full_width(dev, b, t, n_layers):
     w = p_ar.pack_decoder(dec, torch.bfloat16)
     mk, mv = p_ar.precompute_memory_packed(dec, hvar.to(dev))
     bias = torch.where(mask, k1.NEG_INF, 0.0).float().to(dev).contiguous()
-    mk, mv = mk.bfloat16().contiguous(), mv.bfloat16().contiguous()
+    return w, mk.bfloat16().contiguous(), mv.bfloat16().contiguous(), bias
+
+
+def _plain_one_shot(w, mk, mv, bias, t):
+    return k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, mk.shape[1], t), 0, t)[1]
+
+
+def _k1_full_width(dev, b, t, n_layers):
+    """K1 against its plain version at full width.  Tolerance as
+    chip_smoke.py's K1 phase: mean 1e-2, max 0.1.  Returns the launch plan."""
+    w, mk, mv, bias = _full_width_inputs(dev, b, t, n_layers)
     before = k1.launches
     out = k1.ar_decode(w, mk, mv, bias, t)
     torch.cuda.synchronize()
     assert k1.launches == before + 1
-    ref = k1.ar_decode_plain(w, mk, mv, bias, t)
+    ref = _plain_one_shot(w, mk, mv, bias, t)
     assert torch.isfinite(out).all()
     err = (out - ref).abs()
     assert err.mean() < 1e-2 and err.max() < 0.1, (err.mean().item(), err.max().item())
@@ -121,6 +130,38 @@ def test_k1_kernel_on_two_clusters(cuda_device, b, t, n_layers):
     memory, caches and mel at its own first row: 19 rows (10 + 9), and the
     pipeline's largest buckets (16 rows, 2048 frames, 6 layers: 8 + 8)."""
     assert _k1_full_width(cuda_device, b, t, n_layers).groups == 2
+
+
+@pytest.mark.parametrize("chunk", [30, 48], ids=["divides-T", "does-not-divide-T"])
+@pytest.mark.parametrize("b", [1, 4, 19])
+def test_k1_chunk_chain_equals_one_shot(cuda_device, b, chunk):
+    """K1 launched chunk by chunk from its carry gives the one-shot launch's
+    bits: the same plan (keyed by the caches' capacity T), the same steps,
+    and the carried frame is the f32 value the mel exchange held.  B = 19
+    runs two clusters."""
+    t = 300
+    w, mk, mv, bias = _full_width_inputs(cuda_device, b, t, 2)
+    one = k1.ar_decode(w, mk, mv, bias, t)
+    carry = k1.init_carry(w, b, t)
+    before = k1.launches
+    mels = []
+    for pos in range(0, t, chunk):
+        carry, mel = k1.ar_decode_chunk(w, mk, mv, bias, carry, pos, min(chunk, t - pos))
+        mels.append(mel)
+    torch.cuda.synchronize()
+    assert k1.launches == before + len(mels)
+    assert torch.isfinite(one).all()
+    assert torch.equal(torch.cat(mels, dim=1), one)
+
+
+def test_k1_refuses_chunks_outside_the_carry(cuda_device):
+    w, mk, mv, bias = _full_width_inputs(cuda_device, 2, 40, 2)
+    carry = k1.init_carry(w, 2, 40)
+    before = k1.launches
+    for pos0, steps in ((30, 11), (0, 0), (-1, 4)):
+        with pytest.raises(ValueError, match="capacity"):
+            k1.ar_decode_chunk(w, mk, mv, bias, carry, pos0, steps)
+    assert k1.launches == before
 
 
 @pytest.mark.parametrize("t", [40, 1000, 4099])
