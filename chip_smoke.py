@@ -16,7 +16,11 @@ Phase 5 holds K1 launched chunk by chunk from its carry bit for bit against
 the one-shot launch, then drives `stream` (time to first audio, ms per
 chunk, RTF) and checks its wav and its launches; phase 6 serves the pipeline
 through the port's HTTP entry point and `DynamicBatcher` (4 concurrent
-`/tts`, one `/tts/stream`, `/healthz`).  Any failed phase raises and the
+`/tts`, one `/tts/stream`, `/healthz`).  Phase 7 trains the full-width
+vocoder (bf16, adv_mel_fm, B = 16 segments of 32 frames: 2 warm-up and 10
+timed steps, the device ms of each part of a step), holds one small f32
+step on the card against the CPU, round-trips a checkpoint, and vocodes
+through K2 with the trained generator.  Any failed phase raises and the
 script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
@@ -565,6 +569,228 @@ def phase_serving(pipe):
     return row
 
 
+# ---- phase 7: vocoder training ----------------------------------------------
+
+TRAIN_B, TRAIN_FRAMES, TRAIN_WARMUP, TRAIN_STEPS = 16, 32, 2, 10
+# the JAX package's metric schema of an adv_mel_fm step (8 critics)
+TRAIN_KEYS = sorted(["disc_loss", "d_grad_norm", "gen_mel_loss", "gen_adv_loss", "gen_fm_loss",
+                     "gen_sc_loss", "gen_mag_loss", "gen_stft_loss", "gen_loss", "g_grad_norm",
+                     "lr"] + [f"gen_fm_loss_disc_{i}" for i in range(8)])
+MSD_PARAMS, MPD_PARAMS = 29_622_918, 41_105_770  # docs/coverage.md C16, C18
+# one f32 step, card (TF32 off) against CPU from the same weights: every
+# metric within 1e-3 (relative; the G grad norm's MR-STFT term divides by
+# |X| in the smallest bins, which amplifies summation-order noise); every
+# parameter within 2 lr (Adam's first step is ~lr sign(g)), and all but
+# 1e-3 of them within 1e-5 (elements whose gradient is a near-cancelling
+# sum may move either way)
+TRAIN_TOL_METRIC, TRAIN_TOL_FLIPPED = 1e-3, 1e-3
+
+
+def _small_train_cfg(cfg):
+    import dataclasses
+
+    voc = cfg.vocoder
+    voc = dataclasses.replace(
+        voc, generator=dataclasses.replace(voc.generator, upsample_initial_channel=64),
+        discriminator=dataclasses.replace(voc.discriminator, channel_div=8))
+    tr = dataclasses.replace(cfg.training.vocoder, mixed_precision=False)
+    return dataclasses.replace(cfg, vocoder=voc,
+                               training=dataclasses.replace(cfg.training, vocoder=tr))
+
+
+def train_card_vs_cpu(cfg, dev):
+    """One f32 adv_mel_fm step of a small vocoder (generator 64 channels,
+    discriminators at channel_div 8, B = 2, 8 frames) on the card and on
+    the CPU from the same seeded weights and batch."""
+    import torch
+
+    from sambert_hifigan_tpu_torch.train_vocoder import synthetic_pairs
+    from sambert_hifigan_tpu_torch.training.metrics import to_host
+    from sambert_hifigan_tpu_torch.training.vocoder_trainer import (
+        init_vocoder_state, make_vocoder_step)
+
+    small = _small_train_cfg(cfg)
+    step = make_vocoder_step(small)
+    mel, wav = next(synthetic_pairs(2, 8, small.audio.hop_length, small.audio.n_mels, seed=1))
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        state = init_vocoder_state(small, torch.Generator().manual_seed(1), d)
+        metrics = step(state, torch.from_numpy(mel).to(d), torch.from_numpy(wav).to(d))
+        out[name] = (to_host(metrics), {k: v.detach().cpu() for k, v in
+                                        state.model.state_dict().items()})
+    (m_cpu, p_cpu), (m_card, p_card) = out["cpu"], out["card"]
+    metric_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-8) for k in m_cpu)
+    lr = small.training.vocoder.learning_rate
+    diffs = [(p_card[k] - p_cpu[k]).abs() for k in p_cpu if "spectral" not in k]
+    n = sum(d.numel() for d in diffs)
+    row = dict(max_metric_rel_err=metric_err,
+               max_param_abs_err=max(float(d.max()) for d in diffs),
+               params_over_1e5=sum(int((d > 1e-5).sum()) for d in diffs), params=n,
+               gen_loss_card=m_card["gen_loss"], gen_loss_cpu=m_cpu["gen_loss"])
+    if sorted(m_card) != sorted(m_cpu) or metric_err > TRAIN_TOL_METRIC:
+        raise AssertionError(f"card step departs from the CPU step: {row}")
+    if row["max_param_abs_err"] > 2 * lr or row["params_over_1e5"] > TRAIN_TOL_FLIPPED * n:
+        raise AssertionError(f"card step's parameters depart from the CPU step's: {row}")
+    return row
+
+
+def profile_step(fn, n: int = 10):
+    """Device time of one call of fn under torch.profiler: the total over
+    every CUDA kernel, the kernel count, and the n kernels that took most,
+    as (name, ms, calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # ranges, not kernels
+    by_name = {}
+    for e in kernels:
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return dict(device_ms=sum(ms for ms, _ in by_name.values()), kernels=len(kernels),
+                top=[(name[:90], ms, calls) for name, (ms, calls) in ranked[:n]])
+
+
+def phase_train(pipe, dev):
+    """Full-width vocoder training: the default config (generator 512
+    channels, MSD 3 scales, MPD 2/3/5/7/11 at channel_div 1), adv_mel_fm,
+    bf16 mixed precision with f32 masters, B = 16 segments of 32 frames,
+    synthetic pairs from seed 0; 2 warm-up then 10 timed steps.  Then the
+    checks: finite metrics at every step, the JAX key schema, the exact
+    parameter counts, one small step on the card against the CPU, a
+    checkpoint round trip, and the trained generator through K2."""
+    import tempfile
+
+    import torch
+
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
+    from sambert_hifigan_tpu_torch.train_vocoder import synthetic_pairs
+    from sambert_hifigan_tpu_torch.training.checkpoint import CheckpointManager
+    from sambert_hifigan_tpu_torch.training.metrics import to_host
+    from sambert_hifigan_tpu_torch.training.vocoder_trainer import (
+        generator_for_inference, init_vocoder_state, make_vocoder_step)
+
+    cfg = pipe.cfg
+    hop = cfg.audio.hop_length
+    tr = cfg.training.vocoder
+    if not (tr.mixed_precision and cfg.vocoder.loss_mode == "adv_mel_fm"
+            and tr.batch_size == TRAIN_B):
+        raise AssertionError("the default config is no longer bf16 adv_mel_fm at B = 16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_vocoder_state(cfg, torch.Generator().manual_seed(0), dev)
+    model = state.model
+    counts = {name: sum(p.numel() for p in getattr(model, name).parameters())
+              for name in ("generator", "msd", "mpd")}
+    log(f"[train] parameters: {counts}")
+    if (counts["msd"], counts["mpd"]) != (MSD_PARAMS, MPD_PARAMS):
+        raise AssertionError(f"discriminator parameter counts {counts}")
+    step = make_vocoder_step(cfg)
+    pairs = synthetic_pairs(TRAIN_B, TRAIN_FRAMES, hop, cfg.audio.n_mels, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in next(pairs))
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    k1.launches = 0
+    k2.launches = 0
+    all_metrics, step_ms = [], []
+    for i, (mel, wav) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_metrics.append(step(state, mel, wav))
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the parts of one step, each from CUDA events recorded as it is enqueued
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    mel, wav = batches[-1]
+    mark("start")
+    step(state, mel, wav, mark=mark)
+    torch.cuda.synchronize()
+    names = ["start", "g_forward", "d_step", "g_step"]
+    parts = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
+    top = profile_step(lambda: step(state, mel, wav))
+
+    host = [to_host(m) for m in all_metrics]
+    bad = [(i, k) for i, m in enumerate(host) for k, v in m.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite metrics (step, key): {bad[:10]}")
+    if sorted(host[0]) != TRAIN_KEYS:
+        raise AssertionError(f"metric keys {sorted(host[0])} != the JAX schema {TRAIN_KEYS}")
+    if (k1.launches, k2.launches) != (0, 0):
+        raise AssertionError(f"a kernel launched in a train step: K1 {k1.launches}, "
+                             f"K2 {k2.launches}")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    audio_s = TRAIN_B * TRAIN_FRAMES * hop / cfg.audio.sample_rate
+    row = dict(B=TRAIN_B, frames=TRAIN_FRAMES, samples=TRAIN_FRAMES * hop,
+               loss_mode=cfg.vocoder.loss_mode, mixed_precision=tr.mixed_precision,
+               step_ms=step_ms, median_step_ms=med, min_step_ms=min(step_ms),
+               steps_per_s=1e3 / med, audio_s_per_s=audio_s * 1e3 / med,
+               device_ms=parts, peak_memory_gib=peak / 2 ** 30, params=counts,
+               profile=top,
+               first=host[0], last=host[-1])
+    log("[train]", json.dumps(row))
+
+    # card against CPU on a small config, f32
+    row["card_vs_cpu"] = train_card_vs_cpu(cfg, dev)
+    log("[train] card vs CPU", json.dumps(row["card_vs_cpu"]))
+
+    # checkpoint round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp, cfg.audio)
+        t0 = time.perf_counter()
+        ckpt.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        fresh = init_vocoder_state(cfg, torch.Generator().manual_seed(1), dev)
+        t0 = time.perf_counter()
+        restored = ckpt.restore(fresh)
+        restore_s = time.perf_counter() - t0
+    same = restored == state.step == fresh.step and all(
+        torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                          fresh.model.state_dict().values()))
+    for ours, theirs in ((state.g_opt, fresh.g_opt), (state.d_opt, fresh.d_opt)):
+        sa, sb = ours.adamw.state_dict()["state"], theirs.adamw.state_dict()["state"]
+        same = same and ours.applied == theirs.applied and all(
+            torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
+    log(f"[train] checkpoint of step {state.step}: saved in {save_s:.2f} s, restored in "
+        f"{restore_s:.2f} s, torch.equal {same}")
+    if not same:
+        raise AssertionError("the restored train state differs from the saved one")
+    del fresh
+
+    # the trained generator, packed for K2, vocodes through the pipeline
+    trained = generator_for_inference(state)
+    vocoder = TTSPipeline(cfg, pipe.acoustic.state_dict(), trained.state_dict(), device=dev)
+    mel = torch.randn(1, 64, cfg.audio.n_mels, generator=torch.Generator().manual_seed(2))
+    mel = mel.to(dev)
+    k2.launches = 0
+    wav = vocoder.vocode(mel)
+    torch.cuda.synchronize()
+    launches = k2.launches
+    with torch.no_grad():
+        plain = trained(mel.transpose(1, 2))
+    err = float((wav - plain).abs().max())
+    row["vocode"] = dict(frames=64, samples=wav.shape[-1], k2_launches=launches,
+                         max_abs_err=err, ref_mean_abs=float(plain.abs().mean()))
+    log("[train] trained generator through K2", json.dumps(row["vocode"]))
+    if wav.shape != (1, 1, 64 * hop) or not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"vocoded wav {tuple(wav.shape)}, want (1, 1, {64 * hop})")
+    if launches != len(vocoder.mrf_weights) or err > K2_TOL_MAX:
+        raise AssertionError(f"trained generator through K2: {row['vocode']}")
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -615,6 +841,7 @@ def main() -> int:
     launches, _ = phase_pipeline(pipe)
     stream_launch_counts, _ = phase_stream(pipe, cfg, dev, gen, (K1_SHAPES[0], main_shape))
     phase_serving(pipe)
+    train_row = phase_train(pipe, dev)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -623,7 +850,7 @@ def main() -> int:
          "source": "sambert_hifigan_tpu_torch/csrc/ar_decode.cu",
          "replaces": "sambert_hifigan_tpu/ops/pallas/decode_kernel.py:396",
          "launches": launches["ar_decode"],
-         "launches_stream": stream_launch_counts["ar_decode"],
+         "launches_stream": stream_launch_counts["ar_decode"], "launches_train": 0,
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -632,6 +859,7 @@ def main() -> int:
          "source": "sambert_hifigan_tpu_torch/csrc/mrf.cu",
          "replaces": "sambert_hifigan_tpu/ops/pallas/mrf_kernel.py:183",
          "launches": launches["mrf"], "launches_stream": stream_launch_counts["mrf"],
+         "launches_train": train_row["vocode"]["k2_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -642,7 +870,8 @@ def main() -> int:
     log(f"[kernels] K1 at the main path's shape (B={k1_main['B']}, T=S={k1_main['T']}, "
         f"valid frames {list(k1_main['valid'].values())}); K2 summed over the four stages "
         "at B=4, T=1024 frames (one vocode of the main path); launches_stream: the "
-        "launches of one stream(TEXTS[0])")
+        "launches of one stream(TEXTS[0]); launches_train: phase 7's (12 train steps, "
+        "then one vocode of the trained generator)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

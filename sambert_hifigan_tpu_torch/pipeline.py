@@ -133,12 +133,14 @@ class TTSPipeline:
     ) -> None:
         """Build the kernels, then run every (phoneme bucket, frame bucket)
         pair once, so that no user request pays a first call (serving calls
-        this at startup).  With max_frames given, only that frame bucket
-        runs.  streaming=True also streams one text per phoneme bucket;
-        batch_buckets=True runs synthesize_batch at every
-        runtime.batch_buckets size at the smallest text bucket.  Nothing in
-        the port compiles per shape, so unlike the JAX package's warmup this
-        one has no decode-chunk graph to warm for every frame bucket."""
+        this at startup).  With max_frames given, the one-shot and batch
+        legs run only that frame bucket.  streaming=True also streams one
+        text per phoneme bucket, at the bucket `stream` estimates for it, as
+        a user's stream of that text would run; batch_buckets=True runs
+        synthesize_batch at every runtime.batch_buckets size at the smallest
+        text bucket.  Nothing in the port compiles per shape, so unlike the
+        JAX package's warmup this one has no decode-chunk graph to warm for
+        every frame bucket."""
         if self.device.type == "cuda":
             kernels.build_all()
         frame_buckets = [max_frames] if max_frames else list(self.cfg.runtime.frame_buckets)
@@ -157,7 +159,7 @@ class TTSPipeline:
         if batch_buckets:
             text0 = texts[min(texts)]
             for b in self.cfg.runtime.batch_buckets:
-                self.synthesize_batch([text0] * b)
+                self.synthesize_batch([text0] * b, max_frames=max_frames)
 
     # ---- public API ----------------------------------------------------------
 

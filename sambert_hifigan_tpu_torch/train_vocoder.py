@@ -1,0 +1,180 @@
+"""Train the HiFi-GAN vocoder.
+
+  python -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20 \
+      [--loss-mode adv_mel_fm] [--batch-size 16] [--segment-frames 32] \
+      [--checkpoint-dir checkpoints/vocoder] [--resume] [--save-precision bf16] \
+      [--device cpu]
+
+Runs on the CUDA card unless --device cpu is given.  --synthetic N trains N
+steps on random (mel, waveform) pairs made from --seed; the weights are
+random from --seed too.  Checkpoints carry the mel fingerprint: --resume
+refuses one trained under another mel configuration.  Training from a
+corpus (--metadata) needs the dataset loader, which this package does not
+have yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--metadata", type=str, default=None)
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--model-config", type=str, default=None)
+    p.add_argument("--loss-mode", type=str, default=None,
+                   choices=["mel_only", "adv_mel", "adv_mel_fm"])
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--segment-frames", type=int, default=32)
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--log-dir", type=str, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--d-lr", type=float, default=None,
+                   help="discriminator learning rate override")
+    p.add_argument("--d-update-every", type=int, default=None,
+                   help="update D every k-th step (default 1)")
+    p.add_argument("--lr-schedule", type=str, default=None,
+                   choices=["constant", "exponential", "warmup_cosine"],
+                   help="learning-rate schedule for both sides (training/optim.py)")
+    p.add_argument("--lr-decay-gamma", type=float, default=None,
+                   help="exponential: multiply lr by this every --lr-decay-steps")
+    p.add_argument("--warmup-steps", type=int, default=None,
+                   help="linear LR warmup steps (any schedule)")
+    p.add_argument("--lr-total-steps", type=int, default=None,
+                   help="warmup_cosine: the step at which the cosine reaches its floor")
+    p.add_argument("--lr-decay-steps", type=int, default=None,
+                   help="exponential: decay interval in steps")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="EMA decay of the generator's parameters (0 = off)")
+    p.add_argument("--accumulate-steps", type=int, default=None,
+                   help="average k micro-batch gradients into one optimizer update")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train N steps on synthetic pairs (no corpus)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tensorboard", action="store_true",
+                   help="mirror scalars into TensorBoard event files")
+    p.add_argument("--save-precision", choices=["f32", "bf16"], default="f32",
+                   help="bf16 stores the discriminators and both optimizers' moments in "
+                        "bf16; the generator and its EMA stay f32")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda; 'cpu' trains on the CPU)")
+    return p.parse_args(argv)
+
+
+def synthetic_pairs(batch: int, frames: int, hop: int, n_mels: int = 80, seed: int = 0):
+    """Endless (mel [B, n_mels, frames], wav [B, 1, frames * hop]) from a seed."""
+    rng = np.random.default_rng(seed)
+    while True:
+        mel = rng.standard_normal((batch, n_mels, frames)).astype(np.float32)
+        wav = (rng.standard_normal((batch, 1, frames * hop)) * 0.1).astype(np.float32)
+        yield mel, wav
+
+
+def stage_config(cfg, args):
+    """cfg with the command line's overrides of training.vocoder."""
+    tr = cfg.training.vocoder
+    for field, val in (
+        ("learning_rate_discriminator", args.d_lr),
+        ("d_update_every", args.d_update_every),
+        ("lr_schedule", args.lr_schedule),
+        ("lr_decay_gamma", args.lr_decay_gamma),
+        ("lr_decay_steps", args.lr_decay_steps),
+        ("warmup_steps", args.warmup_steps),
+        ("lr_total_steps", args.lr_total_steps),
+        ("ema_decay", args.ema_decay),
+        ("accumulate_steps", args.accumulate_steps),
+    ):
+        if val is not None:
+            tr = dataclasses.replace(tr, **{field: val})
+    return dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, vocoder=tr))
+
+
+def main(argv=None):
+    import torch
+
+    from .config import default_config, load_config, validate_config
+    from .kernels import resolve_device
+    from .training.checkpoint import CheckpointManager
+    from .training.metrics import MetricsWriter
+    from .training.signals import GracefulShutdown, TrainingDiverged, check_finite_metrics
+    from .training.vocoder_trainer import init_vocoder_state, make_vocoder_step
+
+    args = parse_args(argv)
+    if not args.synthetic:
+        raise SystemExit(
+            "--metadata: training from a corpus needs the dataset loader (TTSDataset), which "
+            "this package does not have yet; use --synthetic N"
+            if args.metadata else "--synthetic N is required"
+        )
+    device = resolve_device(args.device)
+    cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
+           else default_config())
+    cfg = stage_config(cfg, args)
+    validate_config(cfg)
+    loss_mode = args.loss_mode or cfg.vocoder.loss_mode
+    batch_size = args.batch_size or cfg.training.vocoder.batch_size
+
+    state = init_vocoder_state(cfg, torch.Generator().manual_seed(args.seed), device)
+    ckpt_dir = args.checkpoint_dir or f"{cfg.paths.checkpoint_dir}/vocoder"
+    ckpt = CheckpointManager(ckpt_dir, cfg.audio)
+    if args.resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        print(f"[train_vocoder] resumed from step {state.step}")
+    step_fn = make_vocoder_step(cfg, loss_mode=loss_mode)
+    batches = synthetic_pairs(batch_size, args.segment_frames, cfg.audio.hop_length,
+                              cfg.audio.n_mels, args.seed)
+    total_steps = args.synthetic
+    n_params = sum(p.numel() for p in state.model.generator.parameters())
+    print(f"[train_vocoder] {loss_mode} on {device}, batch {batch_size} x "
+          f"{args.segment_frames} frames, generator {n_params} parameters")
+
+    writer = MetricsWriter(args.log_dir or cfg.paths.log_dir, "vocoder",
+                           tensorboard=args.tensorboard)
+    log_interval = cfg.training.vocoder.log_interval
+    save_interval = cfg.training.vocoder.save_interval
+
+    def put(a):
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
+    # SIGTERM/SIGINT -> finish the step, save, exit resumable; non-finite
+    # logged metrics -> emergency save, exit non-zero
+    shutdown = GracefulShutdown()
+    start_step = last_step = state.step
+    try:
+        for i in range(start_step, total_steps):
+            if shutdown.requested:
+                break
+            mel, wav = next(batches)
+            metrics = step_fn(state, put(mel), put(wav))
+            last_step = i + 1
+            if (i + 1) % log_interval == 0 or i == start_step:
+                host = writer.write(i + 1, metrics)
+                check_finite_metrics(host, i + 1)
+                print(writer.summary_line(i + 1, host, ["gen_loss", "gen_mel_loss", "disc_loss"]))
+            if (i + 1) % save_interval == 0:
+                ckpt.save(i + 1, state, precision=args.save_precision)
+    except TrainingDiverged as e:
+        if ckpt.latest_step() != last_step:
+            ckpt.save(last_step, state, precision=args.save_precision)
+        raise SystemExit(f"[train_vocoder] DIVERGED: {e}; state saved at step {last_step} "
+                         f"in {ckpt_dir} for forensics") from e
+    finally:
+        shutdown.restore()
+        writer.close()
+    if ckpt.latest_step() != last_step:
+        ckpt.save(last_step, state, precision=args.save_precision)
+    if shutdown.requested:
+        print(f"[train_vocoder] interrupted at step {last_step}; resumable checkpoint in "
+              f"{ckpt_dir} (--resume)")
+    else:
+        print(f"[train_vocoder] done at step {last_step}; checkpoints in {ckpt_dir}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

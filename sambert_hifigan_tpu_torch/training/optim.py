@@ -1,0 +1,173 @@
+"""The optimizer of a training stage: learning-rate schedules, optional
+global-norm clipping, AdamW, gradient accumulation, and the EMA.
+
+The JAX package builds `MultiSteps(chain(clip?, adamw(schedule)))` in optax;
+this is the same function in torch:
+
+* Schedules (`make_lr_schedule`): constant, exponential (staircase: lr *=
+  gamma every lr_decay_steps) and warmup_cosine (linear from 0 to lr over
+  warmup_steps, then a cosine to lr * lr_end_ratio at lr_total_steps), each
+  optionally behind a linear warmup, in optax's formulas.  The step they
+  take counts APPLIED updates.
+* Clipping: optax's clip_by_global_norm (g unchanged below max_norm, else
+  g / ||g|| * max_norm).
+* AdamW: torch.optim.AdamW, whose decoupled decay and eps (1e-8, outside
+  the square root) are optax's adamw.  optax applies the schedule at the
+  update count before the increment; `Optimizer.step` sets each group's lr
+  from the schedule at that count before each applied update.
+* Accumulation (accumulate_steps = k > 1): optax MultiSteps; the running
+  mean acc += (g - acc) / (n + 1) of k gradients is applied as ONE update,
+  and the others change nothing.
+* EMA: ema <- decay * ema + (1 - decay) * params after every step.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..config import ConfigError, TrainStageConfig
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule (a polynomial of power 1)."""
+    if steps <= 0:
+        return lambda count: init
+
+    def sched(count):
+        frac = 1 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    return sched
+
+
+def _join(first: Callable, then: Callable, boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules of two schedules."""
+    return lambda count: first(count) if count < boundary else then(count - boundary)
+
+
+def make_lr_schedule(tr: TrainStageConfig,
+                     base_lr: Optional[float] = None) -> Callable[[int], float]:
+    """applied-update count -> learning rate; `base_lr` overrides
+    tr.learning_rate (the discriminator's own rate)."""
+    lr = tr.learning_rate if base_lr is None else base_lr
+    kind = tr.lr_schedule
+    if kind == "constant":
+        sched = lambda count: lr  # noqa: E731
+    elif kind == "exponential":
+        steps, gamma = tr.lr_decay_steps, tr.lr_decay_gamma
+        def sched(count):
+            if steps <= 0 or gamma == 0 or count <= 0:
+                return lr
+            return lr * gamma ** math.floor(count / steps)
+    elif kind == "warmup_cosine":
+        warmup = max(tr.warmup_steps, 1)
+        decay = max(tr.lr_total_steps, tr.warmup_steps + 1) - warmup
+        end = lr * tr.lr_end_ratio
+        alpha = 0.0 if lr == 0.0 else end / lr
+
+        def cosine(count):
+            c = min(count, decay)
+            return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay)) + alpha)
+
+        sched = _join(_linear(0.0, lr, warmup), cosine, warmup)
+    else:
+        raise ConfigError(
+            f"unknown lr_schedule {kind!r}; expected constant | exponential | warmup_cosine"
+        )
+    if kind != "warmup_cosine" and tr.warmup_steps > 0:
+        sched = _join(_linear(0.0, lr, tr.warmup_steps), sched, tr.warmup_steps)
+    return sched
+
+
+def current_lr(tr: TrainStageConfig, step: int, base_lr: Optional[float] = None) -> float:
+    """The schedule's value at train-loop `step` (micro-steps): the applied
+    update count is step // accumulate_steps."""
+    return make_lr_schedule(tr, base_lr)(step // max(tr.accumulate_steps, 1))
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
+
+
+class Optimizer:
+    """clip? -> AdamW(schedule), accumulated over accumulate_steps
+    micro-steps.  `step(grads)` takes the gradients of `params` in order."""
+
+    def __init__(self, params: Sequence[nn.Parameter], tr: TrainStageConfig,
+                 base_lr: Optional[float] = None):
+        self.params = list(params)
+        self.schedule = make_lr_schedule(tr, base_lr)
+        self.clip = tr.gradient_clip
+        self.k = tr.accumulate_steps
+        self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(tr.beta1, tr.beta2),
+                                       eps=1e-8, weight_decay=tr.weight_decay)
+        self.applied = 0  # updates applied: the schedule's count
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else []
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        if self.k > 1:
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.k:
+                return
+            grads = self.acc
+        if self.clip is not None:
+            norm = global_norm(grads)
+            grads = [torch.where(norm < self.clip, g, g / norm * self.clip) for g in grads]
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.applied)
+        self.adamw.step()
+        for p in self.params:
+            p.grad = None
+        self.applied += 1
+        if self.k > 1:
+            self.mini_step = 0
+            for a in self.acc:
+                a.zero_()
+
+    def state_dict(self) -> dict:
+        return {"adamw": self.adamw.state_dict(), "applied": self.applied,
+                "mini_step": self.mini_step, "acc": list(self.acc)}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.adamw.load_state_dict(sd["adamw"])
+        self.applied = int(sd["applied"])
+        self.mini_step = int(sd["mini_step"])
+        if len(sd["acc"]) != len(self.acc):
+            raise ValueError("checkpoint's accumulation state does not match accumulate_steps")
+        with torch.no_grad():
+            for a, s in zip(self.acc, sd["acc"]):
+                a.copy_(s)
+
+
+@torch.no_grad()
+def ema_update(ema: nn.Module, module: nn.Module, decay: float) -> None:
+    """ema <- decay * ema + (1 - decay) * params, in place."""
+    for e, p in zip(ema.parameters(), module.parameters()):
+        e.copy_(e * decay + p * (1.0 - decay))
+
+
+def ema_copy(module: nn.Module) -> nn.Module:
+    """A copy of the module to average into, outside autograd."""
+    return copy.deepcopy(module).requires_grad_(False)
+
+
+def maybe_init_ema(tr: TrainStageConfig, module: nn.Module) -> Optional[nn.Module]:
+    """The EMA starts as a copy of the parameters; None when ema_decay is 0."""
+    return ema_copy(module) if tr.ema_decay > 0.0 else None
+
+
+def inference_params(module: nn.Module, ema: Optional[nn.Module]) -> nn.Module:
+    """Prefer the EMA copy for inference and eval when it exists."""
+    return module if ema is None else ema

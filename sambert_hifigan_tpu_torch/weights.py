@@ -10,6 +10,10 @@ either the `{"params": ...}` wrapper or its content) and need no JAX:
                   taps flipped: W[i, o, s] = w[K-1-s, i, o]
   LayerNorm       scale, bias               -> weight, bias
   MHA             wq/wk/wv/wo [d, d] + bq/bk/bv/bo -> wq/wk/wv/wo Linear
+  weight-normed   kernel_wn {g [Cout], v}   -> weight_g, weight_v (v reordered
+  Conv1d/Conv2d                                as the plain kernel)
+  Conv2d          kernel [KH, KW, Cin, Cout] -> weight [Cout, Cin, KH, KW]
+  spectral norm   'spectral' u, v           -> buffers spectral_u, spectral_v
 """
 
 from __future__ import annotations
@@ -127,6 +131,53 @@ def mrf_state_dict_from_flax(params, prefix: str = "") -> StateDict:
         for j, _ in _layers(rp, "conv1_"):
             _conv(sd, f"{prefix}resblocks.{r}.convs1.{j}", rp[f"conv1_{j}"])
             _conv(sd, f"{prefix}resblocks.{r}.convs2.{j}", rp[f"conv2_{j}"])
+    return sd
+
+
+def conv_state_dict_from_flax(p, spectral=None) -> StateDict:
+    """A discriminator conv (1-D or 2-D; weight norm, or spectral norm with
+    its 'spectral' u, v) -> the state_dict of a NormConv1d / NormConv2d."""
+    sd: StateDict = {}
+    if "kernel_wn" in p:
+        sd["weight_g"] = _t(p["kernel_wn"]["g"])
+        sd["weight_v"] = _t(_conv_layout(np.asarray(p["kernel_wn"]["v"])))
+    else:
+        sd["weight"] = _t(_conv_layout(np.asarray(p["kernel"])))
+        if spectral is not None:
+            sd["spectral_u"] = _t(spectral["u"])
+            sd["spectral_v"] = _t(spectral["v"])
+    sd["bias"] = _t(p["bias"])
+    return sd
+
+
+def _conv_layout(k: np.ndarray) -> np.ndarray:
+    """Channel-last kernel ([K, Cin, Cout] or [KH, KW, Cin, Cout]) -> torch's."""
+    return k.transpose(2, 1, 0) if k.ndim == 3 else k.transpose(3, 2, 0, 1)
+
+
+def _critic(sd: StateDict, name: str, p, spectral=None) -> None:
+    convs = [(f"convs.{i}", f"conv_{i}") for i, _ in _layers(p, "conv_")]
+    for ours, theirs in convs + [("conv_post", "conv_post")]:
+        conv = conv_state_dict_from_flax(p[theirs], None if spectral is None else spectral[theirs])
+        sd.update({f"{name}.{ours}.{k}": v for k, v in conv.items()})
+
+
+def vocoder_state_dicts_from_flax(params, spectral=None) -> StateDict:
+    """flax HiFiGAN params ({'generator', 'msd', 'mpd'}, with or without the
+    'params' wrapper) and, for spectral-norm discriminators, the 'spectral'
+    collection -> state_dict of the port's HiFiGAN (keys under generator.,
+    msd., mpd.)."""
+    p = _unwrap(params)
+    spectral = {} if spectral is None else spectral.get("spectral", spectral)
+    sd: StateDict = {f"generator.{k}": v
+                     for k, v in generator_state_dict_from_flax(p["generator"]).items()}
+    msd_s, mpd_s = spectral.get("msd"), spectral.get("mpd")
+    for i, dp in _layers(p["msd"], "disc_"):
+        _critic(sd, f"msd.discs.{i}", dp, None if msd_s is None else msd_s[f"disc_{i}"])
+    # critics in ascending period, as the configs list them
+    for i, period in enumerate(sorted(int(k[len("disc_p"):]) for k in p["mpd"])):
+        name = f"disc_p{period}"
+        _critic(sd, f"mpd.discs.{i}", p["mpd"][name], None if mpd_s is None else mpd_s[name])
     return sd
 
 

@@ -208,3 +208,109 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     w = p_ar.pack_decoder(odd.to(cuda_device), torch.bfloat16)
     with pytest.raises(ValueError):  # d_ff = 72: no launch plan splits it into 16-row K steps
         k1.ar_decode(w, mk, mk, bias, 8)
+
+
+# ---- vocoder training on the card ------------------------------------------------
+
+
+def _vocoder_train_cfg(mixed_precision, width=64, channel_div=8):
+    import dataclasses
+
+    from sambert_hifigan_tpu_torch.config import default_config
+
+    cfg = default_config()
+    voc = cfg.vocoder
+    voc = dataclasses.replace(
+        voc, generator=dataclasses.replace(voc.generator, upsample_initial_channel=width),
+        discriminator=dataclasses.replace(voc.discriminator, channel_div=channel_div))
+    tr = dataclasses.replace(cfg.training.vocoder, mixed_precision=mixed_precision)
+    return dataclasses.replace(cfg, vocoder=voc,
+                               training=dataclasses.replace(cfg.training, vocoder=tr))
+
+
+def _one_step(cfg, dev, seed=1):
+    from sambert_hifigan_tpu_torch.train_vocoder import synthetic_pairs
+    from sambert_hifigan_tpu_torch.training.vocoder_trainer import (
+        init_vocoder_state,
+        make_vocoder_step,
+    )
+
+    mel, wav = next(synthetic_pairs(2, 8, cfg.audio.hop_length, cfg.audio.n_mels, seed=seed))
+    state = init_vocoder_state(cfg, torch.Generator().manual_seed(seed), dev)
+    metrics = make_vocoder_step(cfg)(state, torch.from_numpy(mel).to(dev),
+                                     torch.from_numpy(wav).to(dev))
+    return state, {k: float(v) for k, v in metrics.items()}
+
+
+def test_vocoder_step_on_card_matches_cpu(cuda_device):
+    """One f32 adv_mel_fm step of a small vocoder (generator 64 channels,
+    discriminators at channel_div 8, B = 2, 8 frames) on the card (TF32 off)
+    and on the CPU from the same seeded weights: every metric within 1e-3
+    (relative), every parameter within 2 lr, all but 1e-3 of them within
+    1e-5 (Adam's first step is ~lr sign(g); a near-cancelling gradient may
+    take either sign)."""
+    cfg = _vocoder_train_cfg(mixed_precision=False)
+    card, m_card = _one_step(cfg, cuda_device)
+    cpu, m_cpu = _one_step(cfg, torch.device("cpu"))
+    assert sorted(m_card) == sorted(m_cpu)
+    for k, want in m_cpu.items():
+        assert abs(m_card[k] - want) <= 1e-3 * max(abs(want), 1e-8), (k, m_card[k], want)
+    lr = cfg.training.vocoder.learning_rate
+    flipped = total = 0
+    for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):
+        diff = (a.cpu() - b).abs()
+        assert diff.max() <= 2 * lr, k
+        flipped += int((diff > 1e-5).sum())
+        total += diff.numel()
+    assert flipped <= 1e-3 * total, (flipped, total)
+
+
+def test_trained_generator_through_k2_matches_its_plain_forward(cuda_device):
+    """One bf16 step of the full-width vocoder (the generator's stages have
+    K2's widths: 256, 128, 64, 32), then its weights packed for K2: four
+    launches vocode 64 frames, within K2's tolerance (5e-3) of the same
+    generator's differentiable f32 forward."""
+    from sambert_hifigan_tpu_torch.config import default_config
+
+    cfg = default_config()
+    state, metrics = _one_step(cfg, cuda_device)
+    assert all(np.isfinite(v) for v in metrics.values())
+    gen = state.model.generator.eval()
+    mel = torch.from_numpy(_np(9, 1, 80, 64)).to(cuda_device)
+    before = k2.launches
+    with torch.no_grad():
+        wav = gen(mel, gen.pack(torch.bfloat16))
+        plain = gen(mel)
+    torch.cuda.synchronize()
+    assert k2.launches - before == 4
+    assert wav.shape == (1, 1, 64 * 256)
+    assert (wav - plain).abs().max() < 5e-3
+
+
+def test_vocoder_checkpoint_restores_on_the_card(cuda_device, tmp_path):
+    """A train state on the card saved and restored into a fresh one: every
+    tensor equal, the moments on the card and the optimizers' step counts
+    on the host, as torch.optim keeps them; the restored state steps on."""
+    from sambert_hifigan_tpu_torch.train_vocoder import synthetic_pairs
+    from sambert_hifigan_tpu_torch.training.checkpoint import CheckpointManager
+    from sambert_hifigan_tpu_torch.training.vocoder_trainer import (
+        init_vocoder_state,
+        make_vocoder_step,
+    )
+
+    cfg = _vocoder_train_cfg(mixed_precision=True)
+    state, _ = _one_step(cfg, cuda_device)
+    ckpt = CheckpointManager(tmp_path, cfg.audio)
+    ckpt.save(1, state)
+    fresh = init_vocoder_state(cfg, torch.Generator().manual_seed(5), cuda_device)
+    assert ckpt.restore(fresh) == 1
+    for a, b in zip(state.model.state_dict().values(), fresh.model.state_dict().values()):
+        assert torch.equal(a, b)
+    for opt in (fresh.g_opt, fresh.d_opt):
+        for st in opt.adamw.state.values():
+            assert st["step"].device.type == "cpu"
+            assert st["exp_avg"].device.type == "cuda"
+    mel, wav = next(synthetic_pairs(2, 8, cfg.audio.hop_length, cfg.audio.n_mels, seed=3))
+    metrics = make_vocoder_step(cfg)(fresh, torch.from_numpy(mel).to(cuda_device),
+                                     torch.from_numpy(wav).to(cuda_device))
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and fresh.step == 2

@@ -31,6 +31,8 @@ from sambert_hifigan_tpu_torch.weights import (
     generator_state_dict_from_flax,
 )
 
+from tests.test_torch_discriminators import one_torch_thread  # noqa: F401 (a fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 TEXTS = ["你好", "今天天气", "abc"]
 

@@ -36,6 +36,7 @@ from sambert_hifigan_tpu_torch.weights import (
     generator_state_dict_from_flax,
 )
 
+from tests.test_torch_discriminators import one_torch_thread  # noqa: F401 (a fixture)
 from tests.test_torch_pipeline import _small_cfg
 
 D, MELS, HOP = 32, 80, 256
@@ -217,6 +218,31 @@ def test_truncated_stream_matches_synthesize_at_the_bucket_end(pipelines):
 def test_warmup_smoke(pipelines):
     _, pp = pipelines
     pp.warmup(max_frames=96, streaming=True, batch_buckets=True)
+
+
+def test_warmup_counts_its_frame_buckets(pipelines, run_buckets, monkeypatch):
+    """With max_frames, every one-shot leg (one per phoneme bucket) and
+    every batch leg (one per batch bucket) decodes at that bucket, and each
+    stream leg runs where stream would run its text; without it, the
+    one-shot legs run every frame bucket of every phoneme bucket."""
+    _, pp = pipelines
+    seen = []
+    acoustic = pp._acoustic
+
+    def recording(args, max_frames, *controls):
+        seen.append(max_frames)
+        return acoustic(args, max_frames, *controls)
+
+    monkeypatch.setattr(pp, "_acoustic", recording)
+    rt = pp.cfg.runtime
+    pp.warmup(max_frames=96, streaming=True, batch_buckets=True)
+    assert seen == [96] * (len(rt.phoneme_buckets) + len(rt.batch_buckets))
+    # the 8-phoneme text starts at its estimate, 96, and restarts at 160
+    # (~15 frames a phoneme); the 16-phoneme text's estimate is 160
+    assert run_buckets == [96, 160, 160]
+    seen.clear()
+    pp.warmup()
+    assert seen == list(rt.frame_buckets) * len(rt.phoneme_buckets)
 
 
 def test_stream_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
