@@ -20,8 +20,16 @@ through the port's HTTP entry point and `DynamicBatcher` (4 concurrent
 vocoder (bf16, adv_mel_fm, B = 16 segments of 32 frames: 2 warm-up and 10
 timed steps, the device ms of each part of a step), holds one small f32
 step on the card against the CPU, round-trips a checkpoint, and vocodes
-through K2 with the trained generator.  Any failed phase raises and the
-script exits non-zero.  It imports nothing of JAX.
+through K2 with the trained generator.  Phase 8 trains the full-width
+acoustic model (bf16, B = 16, 64 phonemes, a 512-frame bucket: 2 warm-up
+and 10 timed steps, the device ms of forward, backward and optimizer, a
+profiler ranking, peak memory), holds one small f32 step on the card
+against the CPU, round-trips a checkpoint (a background save included),
+runs the trained decoder through K1 against its plain version and
+`synthesize_batch` with the trained model, then runs `train_acoustic
+--synthetic 2` on the card and `inference --acoustic-checkpoint` on what it
+wrote.  Any failed phase raises and the script exits non-zero.  It imports
+nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
 kernel's launches, error and times, and the card's name and power limit as
@@ -791,6 +799,321 @@ def phase_train(pipe, dev):
     return row
 
 
+# ---- phase 8: acoustic training ---------------------------------------------
+
+AC_B, AC_TPH, AC_FRAMES, AC_WARMUP, AC_STEPS = 16, 64, 512, 2, 10
+AC_KEYS = sorted(["total_loss", "mel_loss", "dur_loss", "pitch_loss", "energy_loss",
+                  "grad_norm", "lr"])
+# one f32 step, card (TF32 off) against CPU from the same weights, dropout 0:
+# every metric within 1e-4 (relative); every parameter within 2 lr, all but
+# 1e-3 of them within 1e-5 (Adam's first step is ~lr sign(g))
+AC_TOL_METRIC, AC_TOL_FLIPPED = 1e-4, 1e-3
+
+
+def acoustic_step_flops(cfg, b: int, tph: int, t: int) -> float:
+    """Matrix-product FLOPs of one train step (forward, and backward at twice
+    the forward), from the shapes: the encoder over b x tph phonemes, the
+    three predictors' convolutions, the decoder over b x t frames (dense
+    causal and cross attention over all t frames, as computed)."""
+    am = cfg.acoustic_model
+    d, enc, dec, va = am.d_model, am.encoder, am.decoder, am.variance_adaptor
+    per_token = enc.n_layers * (4 * d * d + 2 * d * enc.d_ff + 2 * tph * d)
+    per_token += 3 * va.predictor_layers * va.predictor_kernel_size * d * d + 3 * d
+    per_frame = dec.n_layers * (4 * d * d + 4 * d * d + 2 * d * dec.d_ff + 4 * t * d)
+    per_frame += am.n_mels * d + d * d + d * am.n_mels
+    return 3 * 2 * (b * tph * per_token + b * t * per_frame)
+
+
+def _small_acoustic_cfg(cfg):
+    import dataclasses
+
+    from sambert_hifigan_tpu_torch import config as c
+
+    am = dataclasses.replace(
+        cfg.acoustic_model, d_model=64,
+        encoder=c.EncoderConfig(n_layers=2, n_heads=2, d_ff=128, dropout=0.0),
+        variance_adaptor=c.VarianceAdaptorConfig(predictor_dropout=0.0),
+        decoder=c.DecoderConfig(n_layers=2, n_heads=4, d_ff=128, dropout=0.0, max_len=128))
+    tr = dataclasses.replace(cfg.training.acoustic, mixed_precision=False)
+    return dataclasses.replace(cfg, acoustic_model=am,
+                               training=dataclasses.replace(cfg.training, acoustic=tr))
+
+
+def acoustic_card_vs_cpu(cfg, dev):
+    """One f32 step of a small acoustic model (d 64, 2 + 2 layers, dropout
+    0; B = 2, 16 phonemes, 64 frames) on the card and on the CPU from the
+    same seeded weights and batch."""
+    import torch
+
+    from sambert_hifigan_tpu_torch.data.dataset import batch_to_device, synthetic_batch
+    from sambert_hifigan_tpu_torch.training.acoustic_trainer import (
+        init_acoustic_state, make_acoustic_step)
+    from sambert_hifigan_tpu_torch.training.metrics import to_host
+    from sambert_hifigan_tpu_torch.weights import random_acoustic_model
+
+    small = _small_acoustic_cfg(cfg)
+    step = make_acoustic_step(small)
+    batch = synthetic_batch(small, 2, tph=16, tfrm=64, seed=1)
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = random_acoustic_model(small, torch.Generator().manual_seed(1)).to(d)
+        state = init_acoustic_state(model, small)
+        metrics = step(state, batch_to_device(batch, d), torch.Generator().manual_seed(2))
+        out[name] = (to_host(metrics), {k: v.detach().cpu() for k, v in
+                                        state.model.state_dict().items()})
+    (m_cpu, p_cpu), (m_card, p_card) = out["cpu"], out["card"]
+    metric_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-8) for k in m_cpu)
+    lr = small.training.acoustic.learning_rate
+    diffs = [(p_card[k] - p_cpu[k]).abs() for k in p_cpu]
+    n = sum(x.numel() for x in diffs)
+    row = dict(max_metric_rel_err=metric_err,
+               max_param_abs_err=max(float(x.max()) for x in diffs),
+               params_over_1e5=sum(int((x > 1e-5).sum()) for x in diffs), params=n,
+               total_loss_card=m_card["total_loss"], total_loss_cpu=m_cpu["total_loss"])
+    if sorted(m_card) != sorted(m_cpu) or metric_err > AC_TOL_METRIC:
+        raise AssertionError(f"card acoustic step departs from the CPU step: {row}")
+    if row["max_param_abs_err"] > 2 * lr or row["params_over_1e5"] > AC_TOL_FLIPPED * n:
+        raise AssertionError(f"card acoustic step's parameters depart from the CPU's: {row}")
+    return row
+
+
+def acoustic_checkpoint_round_trip(cfg, state, step, batch, dev):
+    """Save and restore into a fresh state, synchronously and from the
+    background thread while the next step updates the state in place:
+    every tensor `torch.equal` to the state at the save."""
+    import tempfile
+
+    import torch
+
+    from sambert_hifigan_tpu_torch.training.acoustic_trainer import init_acoustic_state
+    from sambert_hifigan_tpu_torch.training.checkpoint import CheckpointManager
+    from sambert_hifigan_tpu_torch.weights import random_acoustic_model
+
+    def snapshot(s):
+        opt = s.opt.adamw.state_dict()["state"]
+        return ([v.clone() for v in s.model.state_dict().values()],
+                [t.clone() for i in sorted(opt) for t in opt[i].values()], s.opt.applied, s.step)
+
+    def same(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+                and all(torch.equal(x, y) for x, y in zip(a[1], b[1])) and a[2:] == b[2:])
+
+    fresh = init_acoustic_state(
+        random_acoustic_model(cfg, torch.Generator().manual_seed(1)).to(dev), cfg)
+    row = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp, cfg.audio)
+        saved = snapshot(state)
+        t0 = time.perf_counter()
+        ckpt.save(state.step, state)
+        row["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.restore(fresh)
+        row["restore_s"] = time.perf_counter() - t0
+        row["sync_equal"] = same(saved, snapshot(fresh))
+        saved = snapshot(state)
+        t0 = time.perf_counter()
+        ckpt.save(state.step, state, background=True)
+        row["background_call_s"] = time.perf_counter() - t0
+        step(state, batch, torch.Generator().manual_seed(7))  # updates the state in place
+        ckpt.wait()
+        row["background_total_s"] = time.perf_counter() - t0
+        ckpt.restore(fresh)
+        row["background_equal"] = same(saved, snapshot(fresh))
+        row["background_differs_from_now"] = not same(snapshot(state), snapshot(fresh))
+    if not (row["sync_equal"] and row["background_equal"]
+            and row["background_differs_from_now"]):
+        raise AssertionError(f"acoustic checkpoint round trip: {row}")
+    return row
+
+
+def phase_acoustic_train(pipe, dev):
+    """Full-width acoustic training: the default config (encoder 6 x d256 x
+    4 heads x FFN 1024, decoder 6 x 8 heads x FFN 2048, 80 mels), bf16
+    mixed precision with f32 masters, the config's B = 16, synthetic
+    batches of 64 phonemes in a 512-frame bucket (durations sum to at most
+    448 frames) from seeds 0-11, weights from seed 0; 2 warm-up then 10
+    timed steps.  Then the checks: finite metrics at every step, the JAX
+    key schema, no kernel in a step, one small f32 step on the card against
+    the CPU, a checkpoint round trip (background save included), the
+    trained decoder through K1 against its plain version, synthesize_batch
+    with the trained model, and the train_acoustic and inference entry
+    points."""
+    import numpy as np
+    import torch
+
+    from sambert_hifigan_tpu_torch.data.dataset import batch_to_device, synthetic_batch
+    from sambert_hifigan_tpu_torch.models.ar_decoder import decode_memory
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
+    from sambert_hifigan_tpu_torch.text.frontend import pick_bucket
+    from sambert_hifigan_tpu_torch.training.acoustic_trainer import (
+        acoustic_inference_params, init_acoustic_state, make_acoustic_step)
+    from sambert_hifigan_tpu_torch.training.metrics import to_host
+    from sambert_hifigan_tpu_torch.weights import random_acoustic_model
+
+    t_phase = time.perf_counter()
+    cfg = pipe.cfg
+    tr = cfg.training.acoustic
+    if not (tr.mixed_precision and tr.batch_size == AC_B):
+        raise AssertionError("the default config is no longer bf16 at B = 16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = random_acoustic_model(cfg, torch.Generator().manual_seed(0)).to(dev)
+    state = init_acoustic_state(model, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_acoustic_step(cfg)
+    host_batches = [synthetic_batch(cfg, AC_B, tph=AC_TPH, tfrm=AC_FRAMES, seed=i)
+                    for i in range(AC_WARMUP + AC_STEPS)]
+    batches = [batch_to_device(b, dev) for b in host_batches]
+    rng = torch.Generator().manual_seed(1)
+    k1.launches = 0
+    k2.launches = 0
+    all_metrics, step_ms = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_metrics.append(step(state, batch, rng))
+        torch.cuda.synchronize()
+        if i >= AC_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    mark("start")
+    step(state, batches[-1], rng, mark=mark)
+    torch.cuda.synchronize()
+    names = ["start", "forward", "backward", "optimizer"]
+    parts = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
+    top = profile_step(lambda: step(state, batches[-1], rng))
+
+    host = [to_host(m) for m in all_metrics]
+    bad = [(i, k) for i, m in enumerate(host) for k, v in m.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite metrics (step, key): {bad[:10]}")
+    if sorted(host[0]) != AC_KEYS:
+        raise AssertionError(f"metric keys {sorted(host[0])} != the JAX schema {AC_KEYS}")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    frames = [int(b["frame_lengths"].sum()) for b in host_batches[AC_WARMUP:]]
+    flops = acoustic_step_flops(cfg, AC_B, AC_TPH, AC_FRAMES)
+    row = dict(B=AC_B, tph=AC_TPH, frame_bucket=AC_FRAMES, params=n_params,
+               mixed_precision=tr.mixed_precision, step_ms=step_ms, median_step_ms=med,
+               min_step_ms=min(step_ms), steps_per_s=1e3 / med,
+               frames_per_s=float(np.median(frames)) * 1e3 / med,
+               bucket_frames_per_s=AC_B * AC_FRAMES * 1e3 / med,
+               tflop_per_step=flops / 1e12, bound_ms=flops / BF16_FLOP_PER_S * 1e3,
+               tflops=flops / med * 1e-9, device_ms=parts,
+               peak_memory_gib=peak / 2 ** 30, profile=top, first=host[0], last=host[-1])
+    log("[acoustic]", json.dumps(row))
+
+    row["card_vs_cpu"] = acoustic_card_vs_cpu(cfg, dev)
+    log("[acoustic] card vs CPU", json.dumps(row["card_vs_cpu"]))
+    row["checkpoint"] = acoustic_checkpoint_round_trip(cfg, state, step, batches[0], dev)
+    log("[acoustic] checkpoint", json.dumps(row["checkpoint"]))
+    # every train step of the phase has run: 12 timed, the CUDA-event step, the
+    # profiled step, the small card step and the step during the background save
+    train_launches = (k1.launches, k2.launches)
+    if train_launches != (0, 0):
+        raise AssertionError(f"a kernel launched in an acoustic train step: {train_launches}")
+
+    # the trained model: its decoder packed for K1, then the whole pipeline
+    trained = acoustic_inference_params(state)
+    tts = TTSPipeline(cfg, trained.state_dict(), pipe.generator.state_dict(), device=dev)
+    tph, args = tts._frontend_args(TEXTS)
+    bucket = tts._initial_bucket(tph, 1.0)
+    va = tts._encode(args, bucket, 1.0, 0.0, 1.0)
+    w = tts.decode_weights
+    memory = decode_memory(tts.acoustic.ar_decoder, va.hvar, ~va.frame_mask, w)
+    k1.launches = 0
+    out = k1.ar_decode(w, *memory, bucket)
+    direct = k1.launches
+    ref = k1.ar_decode_plain(w, *memory, k1.init_carry(w, len(TEXTS), bucket), 0, bucket)[1]
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    k1.launches = 0
+    k2.launches = 0
+    wavs = tts.synthesize_batch(TEXTS)
+    torch.cuda.synchronize()
+    launches = {"ar_decode": k1.launches, "mrf": k2.launches}
+    totals = tts.text_to_mel(TEXTS).total_frames.cpu().tolist()
+    buckets = cfg.runtime.frame_buckets
+    used = bucket if max(totals) <= bucket else pick_bucket(min(max(totals), max(buckets)),
+                                                            buckets)
+    row["trained"] = dict(frame_bucket=bucket, k1_max_abs_err=err.max().item(),
+                          k1_mean_abs_err=err.mean().item(),
+                          ref_mean_abs=ref.abs().mean().item(), totals=totals,
+                          wav_samples=[len(x) for x in wavs], synthesize_launches=launches,
+                          launches={"ar_decode": direct + launches["ar_decode"],
+                                    "mrf": launches["mrf"]})
+    log("[acoustic] trained model through K1 and synthesize_batch", json.dumps(row["trained"]))
+    if direct != 1 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"the trained decoder through K1: {direct} launches, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    if not (err.mean().item() < K1_TOL_MEAN and err.max().item() < K1_TOL_MAX):
+        raise AssertionError(f"the trained decoder through K1 outside tolerance: {row['trained']}")
+    for wav, total in zip(wavs, totals):
+        want = min(int(total), used) * tts.hop
+        if wav.shape != (want,) or not np.isfinite(wav).all():
+            raise AssertionError(f"trained synthesize_batch gave {wav.shape}, want {want}")
+    n_stages = len(tts.mrf_weights)
+    if launches["ar_decode"] < 1 or launches["mrf"] != n_stages * launches["ar_decode"]:
+        raise AssertionError(f"kernels not on the trained model's path: {launches}")
+    row["entry_points"] = acoustic_entry_points(cfg)
+    log("[acoustic] train_acoustic, then inference --acoustic-checkpoint",
+        json.dumps(row["entry_points"]))
+    log(f"[acoustic] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def acoustic_entry_points(cfg):
+    """`python -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 2`
+    with no --device (so on the card), then `inference
+    --acoustic-checkpoint` on the checkpoint it wrote: the trained weights
+    are what the inference pipeline loads, and its synthesis goes through
+    K1 and K2."""
+    import tempfile
+
+    import torch
+
+    from sambert_hifigan_tpu_torch import inference, train_acoustic
+    from sambert_hifigan_tpu_torch.data.audio import load_wav
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import build_pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        state = train_acoustic.main(["--synthetic", "2", "--checkpoint-dir", f"{tmp}/ac",
+                                     "--log-dir", f"{tmp}/logs"])
+        train_s = time.perf_counter() - t0
+        device = next(state.model.parameters()).device.type
+        ckpt = sorted(Path(tmp, "ac").glob("step_*/state.pt"))
+        ckpt_mb = ckpt[-1].stat().st_size / 1e6 if ckpt else None
+        loaded = build_pipeline(cfg, acoustic_checkpoint=f"{tmp}/ac").acoustic.state_dict()
+        same = all(torch.equal(v, loaded[k]) for k, v in state.model.state_dict().items())
+        k1.launches = 0
+        k2.launches = 0
+        inference.main(["--text", TEXTS[0], "--output", f"{tmp}/a.wav",
+                        "--acoustic-checkpoint", f"{tmp}/ac"])
+        launches = {"ar_decode": k1.launches, "mrf": k2.launches}
+        wav, sr = load_wav(f"{tmp}/a.wav")
+    row = dict(device=device, steps=state.step, train_s=train_s,
+               checkpoints=[c.parent.name for c in ckpt],
+               checkpoint_mb=ckpt_mb,
+               loaded_equal=same, inference_launches=launches, wav_samples=int(wav.size),
+               sample_rate=sr)
+    if device != "cuda" or state.step != 2 or len(ckpt) != 1 or not same:
+        raise AssertionError(f"train_acoustic on the card and its checkpoint: {row}")
+    if launches["ar_decode"] < 1 or launches["mrf"] != 4 * launches["ar_decode"] or not wav.size:
+        raise AssertionError(f"inference --acoustic-checkpoint: {row}")
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -842,6 +1165,7 @@ def main() -> int:
     stream_launch_counts, _ = phase_stream(pipe, cfg, dev, gen, (K1_SHAPES[0], main_shape))
     phase_serving(pipe)
     train_row = phase_train(pipe, dev)
+    acoustic_row = phase_acoustic_train(pipe, dev)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -851,6 +1175,7 @@ def main() -> int:
          "replaces": "sambert_hifigan_tpu/ops/pallas/decode_kernel.py:396",
          "launches": launches["ar_decode"],
          "launches_stream": stream_launch_counts["ar_decode"], "launches_train": 0,
+         "launches_acoustic_train": acoustic_row["trained"]["launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -860,6 +1185,7 @@ def main() -> int:
          "replaces": "sambert_hifigan_tpu/ops/pallas/mrf_kernel.py:183",
          "launches": launches["mrf"], "launches_stream": stream_launch_counts["mrf"],
          "launches_train": train_row["vocode"]["k2_launches"],
+         "launches_acoustic_train": acoustic_row["trained"]["launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -871,7 +1197,9 @@ def main() -> int:
         f"valid frames {list(k1_main['valid'].values())}); K2 summed over the four stages "
         "at B=4, T=1024 frames (one vocode of the main path); launches_stream: the "
         "launches of one stream(TEXTS[0]); launches_train: phase 7's (12 train steps, "
-        "then one vocode of the trained generator)")
+        "then one vocode of the trained generator); launches_acoustic_train: phase 8's "
+        "(its 15 full-width train steps and the small card-vs-CPU step, none; then the trained decoder once through K1 and one "
+        "synthesize_batch of the trained model)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

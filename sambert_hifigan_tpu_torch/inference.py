@@ -1,12 +1,16 @@
-"""Text -> WAV from the command line, with random weights made from a seed.
+"""Text -> WAV from the command line.
 
   python -m sambert_hifigan_tpu_torch.inference --text "你好世界" --output out.wav \
+      [--acoustic-checkpoint checkpoints/acoustic] [--vocoder-checkpoint checkpoints/vocoder] \
       [--seed 0] [--duration-scale 1.0] [--pitch-shift 0.0] [--energy-scale 1.0] \
       [--stream] [--chunk-frames 32] [--benchmark] [--device cpu]
 
-With --stream the wav is synthesized chunk by chunk (`TTSPipeline.stream`)
-and the chunks are written out together.  Runs on the CUDA card unless
---device cpu is given.
+The checkpoints are the training directories of `train_acoustic` and
+`train_vocoder`: the latest step of each is loaded, its EMA copy where it
+has one.  A model without a checkpoint has random weights made from
+--seed.  With --stream the wav is synthesized chunk by chunk
+(`TTSPipeline.stream`) and the chunks are written out together.  Runs on
+the CUDA card unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ def parse_args(argv=None):
     p.add_argument("--output", type=str, default="outputs/out.wav")
     p.add_argument("--config", type=str, default=None)
     p.add_argument("--model-config", type=str, default=None)
+    p.add_argument("--acoustic-checkpoint", type=str, default=None)
+    p.add_argument("--vocoder-checkpoint", type=str, default=None)
     p.add_argument("--duration-scale", type=float, default=1.0)
     p.add_argument("--pitch-shift", type=float, default=0.0)
     p.add_argument("--energy-scale", type=float, default=1.0)
@@ -40,12 +46,16 @@ def main(argv=None):
 
     from .config import default_config, load_config
     from .data.audio import save_wav
-    from .pipeline import build_pipeline_from_random_init
+    from .pipeline import build_pipeline
 
     args = parse_args(argv)
-    cfg = load_config(args.config, args.model_config) if args.config else default_config()
-    pipe = build_pipeline_from_random_init(cfg, seed=args.seed, device=args.device)
-    print(f"[inference] random weights (seed {args.seed}) on {pipe.device}")
+    cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
+           else default_config())
+    pipe = build_pipeline(cfg, args.seed, args.device, args.acoustic_checkpoint,
+                          args.vocoder_checkpoint)
+    print(f"[inference] acoustic: {args.acoustic_checkpoint or f'random (seed {args.seed})'}, "
+          f"vocoder: {args.vocoder_checkpoint or f'random (seed {args.seed})'}, "
+          f"on {pipe.device}")
     controls = dict(
         duration_scale=args.duration_scale,
         pitch_shift=args.pitch_shift,

@@ -1,6 +1,16 @@
-"""SAM-BERT acoustic model, inference: PhonemeEmbedding -> BERTEncoder ->
+"""SAM-BERT acoustic model: PhonemeEmbedding -> BERTEncoder ->
 VarianceAdaptor -> PNCAARDecoder.  Callers give `max_frames` (a frame bucket)
-and get a frame mask back with every result."""
+and get a frame mask back with every result.
+
+Training (`forward`, every ground truth given): teacher-forced durations,
+pitch, energy and mel in one differentiable forward, in the compute
+`dtype` (bf16 under mixed precision: the embedding's output is cast once,
+every matrix product and convolution casts its weights at use, LayerNorm
+and softmax compute in f32; the caller casts the outputs to f32 for the
+losses).  A host `torch.Generator` (`rng`) turns dropout on
+(models/layers.py).  Inference (`encode`, `acoustic_inference`) runs f32
+up to the AR decode, which runs over packed weights.
+"""
 
 from __future__ import annotations
 
@@ -46,15 +56,45 @@ class SAMBERTAcousticModel(nn.Module):
         duration_scale: float = 1.0,
         pitch_shift: float = 0.0,
         energy_scale: float = 1.0,
+        *,
+        dur_gt: Optional[torch.Tensor] = None,
+        pitch_gt: Optional[torch.Tensor] = None,
+        energy_gt: Optional[torch.Tensor] = None,
+        rng: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ) -> VarianceAdaptorOutput:
         """Embedding -> encoder -> variance adaptor (everything before the AR
         decoder)."""
-        h0 = self.phoneme_embedding(ph_ids, tone_ids, boundary_ids)
+        h0 = self.phoneme_embedding(ph_ids, tone_ids, boundary_ids).to(dtype)
         key_padding = None if phoneme_mask is None else ~phoneme_mask
-        henc = self.bert_encoder(h0, key_padding)
+        henc = self.bert_encoder(h0, key_padding, rng)
         return self.variance_adaptor(
-            henc, max_frames, phoneme_mask, duration_scale, pitch_shift, energy_scale
+            henc, max_frames, phoneme_mask, duration_scale, pitch_shift, energy_scale,
+            dur_gt=dur_gt, pitch_gt=pitch_gt, energy_gt=energy_gt, rng=rng,
         )
+
+    def forward(
+        self,
+        ph_ids: torch.Tensor,  # [B, Tph] int
+        tone_ids: torch.Tensor,
+        boundary_ids: torch.Tensor,
+        mel_gt: torch.Tensor,  # [B, max_frames, n_mels]
+        dur_gt: torch.Tensor,  # [B, Tph] int
+        pitch_gt: Optional[torch.Tensor] = None,  # [B, max_frames]
+        energy_gt: Optional[torch.Tensor] = None,  # [B, max_frames]
+        phoneme_mask: Optional[torch.Tensor] = None,  # [B, Tph] True = valid
+        *,
+        rng: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
+    ) -> AcousticOutput:
+        """Teacher-forced training forward; outputs in `dtype` (masks and
+        integers as they are)."""
+        va = self.encode(
+            ph_ids, tone_ids, boundary_ids, mel_gt.shape[1], phoneme_mask,
+            dur_gt=dur_gt, pitch_gt=pitch_gt, energy_gt=energy_gt, rng=rng, dtype=dtype,
+        )
+        mel_pred = self.ar_decoder(va.hvar, mel_gt, ~va.frame_mask, rng)
+        return AcousticOutput(mel_pred, va.frame_mask, va.total_frames, va.predictions)
 
 
 @torch.no_grad()

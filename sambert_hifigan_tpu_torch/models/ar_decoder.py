@@ -8,8 +8,14 @@ per utterance (`precompute_memory_packed`, `decode_memory`).  `ar_decode`
 decodes every frame in one call; a stream calls `ar_decode_chunk` from
 `init_packed_carry`, chunk after chunk, with the same bits.  Both route
 every CUDA tensor to the K1 kernel (ops/ar_decode.py) and every CPU tensor
-to its plain version; a shape the kernel does not take raises.  Teacher
-forcing belongs to the training slice.
+to its plain version; a shape the kernel does not take raises.
+
+Training is teacher forcing (`PNCAARDecoder.forward`): the ground-truth mel
+shifted right by a zero frame goes through the prenet (with dropout), the
+positional encoding (with dropout) and the L layers under a causal mask,
+so frame t is predicted from frames < t as the decode predicts it from its
+own output.  With `config.remat` each layer is recomputed on the backward
+pass (models/layers.py `run_layer`).
 """
 
 from __future__ import annotations
@@ -22,8 +28,8 @@ from torch import nn
 from ..config import DecoderConfig
 from ..ops import ar_decode as k1
 from ..ops.ar_decode import NEG_INF, DecodeCarry, DecodeWeights
-from .layers import Linear, xavier_uniform_
-from .transformer import TransformerDecoderLayer, sinusoidal_positional_encoding
+from .layers import Linear, dropout, layer_generator, linear, run_layer, xavier_uniform_
+from .transformer import TransformerDecoderLayer, causal_mask, sinusoidal_positional_encoding
 
 
 class PNCAARDecoder(nn.Module):
@@ -35,7 +41,7 @@ class PNCAARDecoder(nn.Module):
         self.prenet1 = Linear(n_mels, d_model)
         self.prenet2 = Linear(d_model, d_model)
         self.layers = nn.ModuleList(
-            TransformerDecoderLayer(d_model, config.n_heads, config.d_ff)
+            TransformerDecoderLayer(d_model, config.n_heads, config.d_ff, config.dropout)
             for _ in range(config.n_layers)
         )
         self.mel_proj = Linear(d_model, n_mels)
@@ -50,6 +56,27 @@ class PNCAARDecoder(nn.Module):
             layer.self_attn.init_weights_(gen)
             layer.cross_attn.init_weights_(gen)
             layer.ffn.init_weights_(gen)
+
+    def forward(
+        self,
+        hvar: torch.Tensor,  # [B, T, d], the compute dtype
+        mel_gt: torch.Tensor,  # [B, T, n_mels]
+        memory_key_padding_mask: Optional[torch.Tensor] = None,  # [B, T] True = pad
+        rng: Optional[torch.Generator] = None,  # host generator: dropout on
+    ) -> torch.Tensor:
+        """Teacher forcing: predict frame t from frames < t -> [B, T, n_mels]
+        in hvar's dtype."""
+        b, t, _ = hvar.shape
+        gen = layer_generator(rng, hvar.device)
+        shifted = torch.cat([mel_gt.new_zeros(b, 1, self.n_mels), mel_gt[:, :-1]], dim=1)
+        x = torch.relu(linear(self.prenet1, shifted.to(hvar.dtype)))
+        x = linear(self.prenet2, dropout(x, self.config.dropout, gen))
+        x = dropout(x + self.pe[None, :t].to(x.dtype), self.config.dropout, gen)
+        tgt_mask = causal_mask(t, hvar.device)
+        for layer in self.layers:
+            x = run_layer(layer, self.config.remat, rng, x, hvar, tgt_mask,
+                          memory_key_padding_mask)
+        return linear(self.mel_proj, x)
 
 
 @torch.no_grad()

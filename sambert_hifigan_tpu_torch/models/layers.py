@@ -22,16 +22,25 @@ to it at the conv, as the flax layers cast to their `dtype`.
 
 Initialisers take an explicit `torch.Generator` so a pipeline built from a
 seed is reproducible on any device.
+
+Dropout draws its masks from explicit generators too (`dropout`): a
+training forward takes a host `torch.Generator` (`rng`), and each layer
+draws one seed from it for a generator of its own on the activations'
+device (`layer_generator`).  A layer recomputed under
+`torch.utils.checkpoint` makes its generator again from the same seed, so
+its masks, and its gradients, are those of the first pass.  No `rng`
+means no dropout, as the flax modules' `deterministic=True`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Conv1d = nn.Conv1d
 ConvTranspose1d = nn.ConvTranspose1d
@@ -99,7 +108,58 @@ def init_defaults_(module: nn.Module, gen: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
-# ---- convolutions at a compute dtype ---------------------------------------------
+# ---- dropout from explicit generators -------------------------------------------
+
+
+def layer_generator(rng: Optional[torch.Generator], device) -> Optional[torch.Generator]:
+    """A generator on `device` seeded by one draw from the host generator
+    `rng` (None without `rng`).  The draw is on the host: no device sync."""
+    if rng is None:
+        return None
+    return generator_from_seed(draw_seed(rng), device)
+
+
+def draw_seed(rng: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 62, (), generator=rng))
+
+
+def generator_from_seed(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's Dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), else 0; identity without a generator."""
+    if gen is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def run_layer(layer: nn.Module, remat: bool, rng: Optional[torch.Generator], x: torch.Tensor,
+              *args) -> torch.Tensor:
+    """layer(x, *args, gen) with the layer's own dropout generator seeded
+    from `rng`; under `remat` (and autograd) through torch.utils.checkpoint,
+    which makes the generator again from the same seed when it recomputes."""
+    seed = None if rng is None else draw_seed(rng)
+
+    def fn(x, *args):
+        gen = None if seed is None else generator_from_seed(seed, x.device)
+        return layer(x, *args, gen)
+
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(x, *args)
+
+
+# ---- layers at a compute dtype ---------------------------------------------------
+
+
+def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """torch Linear module `m` applied in x's dtype (weights cast at use)."""
+    return F.linear(x, m.weight.to(x.dtype), m.bias.to(x.dtype))
 
 
 def conv1d(m: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -368,3 +368,33 @@ def build_pipeline_from_random_init(cfg: TTSConfig, seed: int = 0, device=None) 
     acoustic = random_acoustic_model(cfg, gen)
     generator = random_generator(cfg, gen)
     return TTSPipeline(cfg, acoustic.state_dict(), generator.state_dict(), device=device)
+
+
+def build_pipeline(cfg: TTSConfig, seed: int = 0, device=None,
+                   acoustic_checkpoint: Optional[str] = None,
+                   vocoder_checkpoint: Optional[str] = None) -> TTSPipeline:
+    """A pipeline over the latest checkpoint of each training directory
+    given (`train_acoustic`, `train_vocoder`), its EMA copy where it has
+    one; without either, the random-weight pipeline of `seed`, and a model
+    without a checkpoint beside one that has one gets random weights from
+    `seed`.  The decoder is packed for K1 and the MRFs for K2 from the
+    loaded weights.  Refuses a checkpoint trained under another mel
+    configuration."""
+    from .training.acoustic_trainer import acoustic_params_from_tree
+    from .training.checkpoint import CheckpointManager
+    from .training.vocoder_trainer import generator_params_from_tree
+
+    if not (acoustic_checkpoint or vocoder_checkpoint):
+        return build_pipeline_from_random_init(cfg, seed, device)
+    device = resolve_device(device)
+    if acoustic_checkpoint:
+        tree, _ = CheckpointManager(acoustic_checkpoint, cfg.audio).restore_tree()
+        acoustic = acoustic_params_from_tree(tree)
+    else:
+        acoustic = random_acoustic_model(cfg, torch.Generator().manual_seed(seed)).state_dict()
+    if vocoder_checkpoint:
+        tree, _ = CheckpointManager(vocoder_checkpoint, cfg.audio).restore_tree()
+        generator = generator_params_from_tree(tree)
+    else:
+        generator = random_generator(cfg, torch.Generator().manual_seed(seed)).state_dict()
+    return TTSPipeline(cfg, acoustic, generator, device=device)

@@ -1,7 +1,7 @@
-"""TTS HTTP server with dynamic micro-batching, over random weights made from
-a seed.
+"""TTS HTTP server with dynamic micro-batching.
 
-  python -m sambert_hifigan_tpu_torch.serve [--seed 0] [--port 8000] \
+  python -m sambert_hifigan_tpu_torch.serve [--acoustic-checkpoint checkpoints/acoustic] \
+      [--vocoder-checkpoint checkpoints/vocoder] [--seed 0] [--port 8000] \
       [--max-batch 16] [--max-wait-ms 20] [--warmup] [--device cpu]
 
 Endpoints:
@@ -18,10 +18,11 @@ one `synthesize_batch` call by `serving.DynamicBatcher`.  The HTTP layer is a
 stdlib ThreadingHTTPServer: each connection thread blocks on its request
 while the batcher's one worker thread drives the card.
 
-Runs on the CUDA card unless --device cpu is given.  The weights are random,
-from --seed, as in `inference.py`: loading trained checkpoints
-(--acoustic-checkpoint, --vocoder-checkpoint) waits for the port of the
-trainers and their CheckpointManager.  Importing this module starts nothing.
+Runs on the CUDA card unless --device cpu is given.  The checkpoints are the
+training directories of `train_acoustic` and `train_vocoder` (the latest
+step, its EMA copy where it has one), as in `inference.py`; a model
+without one has random weights made from --seed.  Importing this module
+starts nothing.
 """
 
 from __future__ import annotations
@@ -181,6 +182,8 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", type=str, default=None)
     p.add_argument("--model-config", type=str, default=None)
+    p.add_argument("--acoustic-checkpoint", type=str, default=None)
+    p.add_argument("--vocoder-checkpoint", type=str, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -196,13 +199,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     from .config import default_config, load_config
-    from .pipeline import build_pipeline_from_random_init
+    from .pipeline import build_pipeline
     from .serving import DynamicBatcher
 
     args = parse_args(argv)
-    cfg = load_config(args.config, args.model_config) if args.config else default_config()
-    pipe = build_pipeline_from_random_init(cfg, seed=args.seed, device=args.device)
-    print(f"[serve] random weights (seed {args.seed}) on {pipe.device}", flush=True)
+    cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
+           else default_config())
+    pipe = build_pipeline(cfg, args.seed, args.device, args.acoustic_checkpoint,
+                          args.vocoder_checkpoint)
+    print(f"[serve] acoustic: {args.acoustic_checkpoint or f'random (seed {args.seed})'}, "
+          f"vocoder: {args.vocoder_checkpoint or f'random (seed {args.seed})'}, "
+          f"on {pipe.device}", flush=True)
     if args.warmup:
         print("[serve] warmup: kernels, bucket grid, streaming, batch sizes...", flush=True)
         pipe.warmup(streaming=True, batch_buckets=True)

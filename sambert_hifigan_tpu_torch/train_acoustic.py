@@ -1,0 +1,151 @@
+"""Train the SAM-BERT acoustic model.
+
+  python -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20 \
+      [--batch-size 16] [--checkpoint-dir checkpoints/acoustic] [--resume] \
+      [--save-precision bf16] [--sync-save] [--scheduled-sampling 0.2] \
+      [--lr-schedule warmup_cosine --warmup-steps 100 --lr-total-steps 20] \
+      [--ema-decay 0.999] [--accumulate-steps 2] [--seed 0] [--device cpu]
+
+Runs on the CUDA card unless --device cpu is given.  --synthetic N trains N
+steps on random batches made from --seed (16 phonemes, 64 frames each, as
+the JAX script's synthetic run); the weights are random from --seed too.
+Interval saves are written by a background thread from a copy made on the
+device (--sync-save writes them in the step loop).  Checkpoints carry the
+mel fingerprint: --resume refuses one trained under another mel
+configuration; `inference --acoustic-checkpoint` and `serve
+--acoustic-checkpoint` load them.  Training from a corpus (--metadata)
+needs the dataset loader, which this package does not have yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from .training.optim import add_stage_flags, stage_overrides
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--metadata", type=str, default=None)
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--model-config", type=str, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--log-dir", type=str, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train N steps on synthetic batches (no corpus)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save-precision", choices=["f32", "bf16"], default="f32",
+                   help="bf16 stores the optimizer's moments in bf16; the model and its "
+                        "EMA stay f32")
+    p.add_argument("--sync-save", action="store_true",
+                   help="write interval checkpoints in the step loop (default: a "
+                        "background thread writes a copy made on the device)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="mirror scalars into TensorBoard event files")
+    p.add_argument("--scheduled-sampling", dest="scheduled_sampling", metavar="P", type=float,
+                   default=None,
+                   help="per-frame probability of feeding the decoder its own pass-1 "
+                        "prediction instead of the ground truth (0 = teacher forcing)")
+    add_stage_flags(p)
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda; 'cpu' trains on the CPU)")
+    return p.parse_args(argv)
+
+
+def stage_config(cfg, args):
+    """cfg with the command line's overrides of training.acoustic."""
+    tr = stage_overrides(cfg.training.acoustic, args, extra=("scheduled_sampling",))
+    return dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, acoustic=tr))
+
+
+def main(argv=None):
+    import torch
+
+    from .config import default_config, load_config, validate_config
+    from .data.dataset import batch_to_device, synthetic_batch
+    from .kernels import resolve_device
+    from .training.acoustic_trainer import init_acoustic_state, make_acoustic_step
+    from .training.checkpoint import CheckpointManager
+    from .training.metrics import MetricsWriter
+    from .training.signals import GracefulShutdown, TrainingDiverged, check_finite_metrics
+    from .weights import random_acoustic_model
+
+    args = parse_args(argv)
+    if not args.synthetic:
+        raise SystemExit(
+            "--metadata: training from a corpus needs the dataset loader (TTSDataset), which "
+            "this package does not have yet; use --synthetic N"
+            if args.metadata else "--synthetic N is required"
+        )
+    device = resolve_device(args.device)
+    cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
+           else default_config())
+    cfg = stage_config(cfg, args)
+    validate_config(cfg)
+    tr = cfg.training.acoustic
+    batch_size = args.batch_size or tr.batch_size
+
+    model = random_acoustic_model(cfg, torch.Generator().manual_seed(args.seed)).to(device)
+    state = init_acoustic_state(model, cfg)
+    ckpt_dir = args.checkpoint_dir or f"{cfg.paths.checkpoint_dir}/acoustic"
+    ckpt = CheckpointManager(ckpt_dir, cfg.audio)
+    if args.resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        print(f"[train_acoustic] resumed from step {state.step}")
+    step_fn = make_acoustic_step(cfg)
+    total_steps = args.synthetic
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train_acoustic] on {device}, batch {batch_size} x 16 phonemes x 64 frames, "
+          f"{n_params} parameters, {'bf16' if tr.mixed_precision else 'f32'}")
+
+    writer = MetricsWriter(args.log_dir or cfg.paths.log_dir, "acoustic",
+                           tensorboard=args.tensorboard)
+    rng = torch.Generator().manual_seed(args.seed + 1)
+    save = dict(precision=args.save_precision, background=not args.sync_save)
+    # SIGTERM/SIGINT -> finish the step, save, exit resumable; non-finite
+    # logged metrics -> emergency save, exit non-zero
+    shutdown = GracefulShutdown()
+    start_step = last_step = state.step
+    try:
+        for i in range(start_step, total_steps):
+            if shutdown.requested:
+                break
+            batch = synthetic_batch(cfg, batch_size, tph=16, tfrm=64, seed=args.seed + i)
+            metrics = step_fn(state, batch_to_device(batch, device), rng)
+            last_step = i + 1
+            if (i + 1) % tr.log_interval == 0 or i == start_step:
+                host = writer.write(i + 1, metrics)
+                check_finite_metrics(host, i + 1)
+                print(writer.summary_line(i + 1, host, ["total_loss", "mel_loss", "dur_loss"]))
+            if (i + 1) % tr.save_interval == 0:
+                ckpt.save(i + 1, state, **save)
+    except TrainingDiverged as e:
+        err = ckpt.drain()  # a failed interval save must not hide the divergence
+        if err:
+            print(f"[train_acoustic] warning: a background save failed earlier: {err!r}")
+        if ckpt.latest_step() != last_step:
+            ckpt.save(last_step, state, precision=args.save_precision)
+        raise SystemExit(f"[train_acoustic] DIVERGED: {e}; state saved at step {last_step} "
+                         f"in {ckpt_dir} for forensics") from e
+    finally:
+        shutdown.restore()
+        writer.close()
+    err = ckpt.drain()
+    if err:
+        print(f"[train_acoustic] warning: a background save failed earlier: {err!r}")
+    if ckpt.latest_step() != last_step:
+        ckpt.save(last_step, state, precision=args.save_precision)
+    if shutdown.requested:
+        print(f"[train_acoustic] interrupted at step {last_step}; resumable checkpoint in "
+              f"{ckpt_dir} (--resume)")
+    else:
+        print(f"[train_acoustic] done at step {last_step}; checkpoints in {ckpt_dir}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

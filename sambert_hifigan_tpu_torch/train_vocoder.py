@@ -20,6 +20,8 @@ import dataclasses
 
 import numpy as np
 
+from .training.optim import add_stage_flags, stage_overrides
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
@@ -34,25 +36,13 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--log-dir", type=str, default=None)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--d-lr", type=float, default=None,
+    p.add_argument("--d-lr", dest="learning_rate_discriminator", metavar="LR", type=float,
+                   default=None,
                    help="discriminator learning rate override")
-    p.add_argument("--d-update-every", type=int, default=None,
+    p.add_argument("--d-update-every", dest="d_update_every", metavar="K", type=int,
+                   default=None,
                    help="update D every k-th step (default 1)")
-    p.add_argument("--lr-schedule", type=str, default=None,
-                   choices=["constant", "exponential", "warmup_cosine"],
-                   help="learning-rate schedule for both sides (training/optim.py)")
-    p.add_argument("--lr-decay-gamma", type=float, default=None,
-                   help="exponential: multiply lr by this every --lr-decay-steps")
-    p.add_argument("--warmup-steps", type=int, default=None,
-                   help="linear LR warmup steps (any schedule)")
-    p.add_argument("--lr-total-steps", type=int, default=None,
-                   help="warmup_cosine: the step at which the cosine reaches its floor")
-    p.add_argument("--lr-decay-steps", type=int, default=None,
-                   help="exponential: decay interval in steps")
-    p.add_argument("--ema-decay", type=float, default=None,
-                   help="EMA decay of the generator's parameters (0 = off)")
-    p.add_argument("--accumulate-steps", type=int, default=None,
-                   help="average k micro-batch gradients into one optimizer update")
+    add_stage_flags(p)
     p.add_argument("--synthetic", type=int, default=0,
                    help="train N steps on synthetic pairs (no corpus)")
     p.add_argument("--seed", type=int, default=0)
@@ -77,20 +67,8 @@ def synthetic_pairs(batch: int, frames: int, hop: int, n_mels: int = 80, seed: i
 
 def stage_config(cfg, args):
     """cfg with the command line's overrides of training.vocoder."""
-    tr = cfg.training.vocoder
-    for field, val in (
-        ("learning_rate_discriminator", args.d_lr),
-        ("d_update_every", args.d_update_every),
-        ("lr_schedule", args.lr_schedule),
-        ("lr_decay_gamma", args.lr_decay_gamma),
-        ("lr_decay_steps", args.lr_decay_steps),
-        ("warmup_steps", args.warmup_steps),
-        ("lr_total_steps", args.lr_total_steps),
-        ("ema_decay", args.ema_decay),
-        ("accumulate_steps", args.accumulate_steps),
-    ):
-        if val is not None:
-            tr = dataclasses.replace(tr, **{field: val})
+    tr = stage_overrides(cfg.training.vocoder, args,
+                         extra=("learning_rate_discriminator", "d_update_every"))
     return dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, vocoder=tr))
 
 

@@ -1,0 +1,132 @@
+"""Acoustic-model training, one step: the teacher-forced forward, the
+acoustic losses on the batch's masks, clip -> AdamW(schedule) with optional
+accumulation (training/optim.py), and the EMA.
+
+Scheduled sampling (p > 0) is two passes: pass 1 is the ordinary
+teacher-forced forward, without gradient; pass 2 runs again with each
+decoder-input frame replaced, with probability p (a per-frame Bernoulli
+mask from the step's generator), by pass 1's prediction, and the loss is
+taken on pass 2.  Both passes draw the same dropout masks, as the JAX step
+gives both the same key.  Targets never change.
+
+Mixed precision (mixed_precision=True): the model computes in bf16 (weights
+cast at use, LayerNorm and softmax in f32) and its outputs are cast to f32
+at the loss boundary, so the losses, the gradients' reductions and the
+optimizer run in f32 on f32 masters.  bf16 shares f32's exponent range: no
+loss scale.
+
+The training path reaches no hand-written kernel: the JAX trainer reaches
+neither Pallas call (they sit behind `ar_decode` and the fused generator),
+so it is plain torch (cuBLAS, cuDNN).  Metrics stay on the device.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..config import LossWeights, TrainStageConfig, TTSConfig
+from ..losses.acoustic import acoustic_loss
+from ..models.acoustic_model import SAMBERTAcousticModel
+from ..models.layers import draw_seed, generator_from_seed
+from .optim import (Optimizer, current_lr, ema_update, global_norm, inference_params,
+                    maybe_init_ema)
+from .train_state import AcousticTrainState
+
+
+def make_acoustic_optimizer(model: SAMBERTAcousticModel, cfg: TTSConfig) -> Optimizer:
+    return Optimizer(model.parameters(), cfg.training.acoustic)
+
+
+def init_acoustic_state(model: SAMBERTAcousticModel, cfg: TTSConfig) -> AcousticTrainState:
+    """A fresh train state (zero optimizer moments, step 0) around `model`,
+    with an EMA copy when training.acoustic.ema_decay > 0."""
+    return AcousticTrainState(model=model, opt=make_acoustic_optimizer(model, cfg), step=0,
+                              ema=maybe_init_ema(cfg.training.acoustic, model))
+
+
+def acoustic_inference_params(state: AcousticTrainState) -> SAMBERTAcousticModel:
+    """The EMA model when the state carries one, else the trained one."""
+    return inference_params(state.model, state.ema)
+
+
+def acoustic_params_from_tree(tree: dict) -> dict:
+    """The same choice from a checkpoint's payload (`restore_tree`): a
+    state_dict of the acoustic model."""
+    return tree.get("ema") or tree["model"]
+
+
+def acoustic_train_step(
+    state: AcousticTrainState,
+    batch: Dict[str, torch.Tensor],
+    rng: torch.Generator,
+    *,
+    weights: LossWeights = LossWeights(),
+    scheduled_sampling: float = 0.0,
+    mixed_precision: bool = False,
+    stage: TrainStageConfig = TrainStageConfig(),
+    mark: Optional[Callable[[str], None]] = None,
+) -> Dict[str, torch.Tensor]:
+    """One step; updates `state` in place and returns the metrics (0-dim
+    float32 tensors on the device): total_loss, mel_loss, dur_loss,
+    pitch_loss, energy_loss, grad_norm (before clipping), lr.
+
+    batch (tensors on the model's device): ph_ids, tone_ids, boundary_ids,
+    dur_gt [B, Tph] int; mel_gt [B, T, n_mels]; pitch_gt, energy_gt [B, T];
+    phoneme_mask [B, Tph] and pitch_mask [B, T] bool.  `rng` is a host
+    generator: the step draws its dropout and sampling seeds from it.
+    `mark(name)`, if given, is called where "forward", "backward" and
+    "optimizer" have been enqueued."""
+    mark = mark or (lambda name: None)
+    model = state.model
+    dtype = torch.bfloat16 if mixed_precision else torch.float32
+    dropout_seed, sampling_seed = draw_seed(rng), draw_seed(rng)
+
+    def forward(teacher_mel):
+        return model(batch["ph_ids"], batch["tone_ids"], batch["boundary_ids"], teacher_mel,
+                     batch["dur_gt"], batch.get("pitch_gt"), batch.get("energy_gt"),
+                     batch.get("phoneme_mask"),
+                     rng=torch.Generator().manual_seed(dropout_seed), dtype=dtype)
+
+    teacher = batch["mel_gt"]
+    if scheduled_sampling > 0.0:
+        with torch.no_grad():
+            own = forward(teacher).mel_pred
+        gen = generator_from_seed(sampling_seed, teacher.device)
+        keep_own = torch.rand(teacher.shape[:2] + (1,), generator=gen,
+                              device=teacher.device) < scheduled_sampling
+        teacher = torch.where(keep_own, own.to(teacher.dtype), teacher)
+    out = forward(teacher)
+    pred = out.predictions
+    total, metrics = acoustic_loss(
+        out.mel_pred.float(), batch["mel_gt"],
+        pred["log_dur_pred"].float(), batch["dur_gt"],
+        pred["pitch_frm"].float(), batch["pitch_gt"],
+        pred["energy_frm"].float(), batch["energy_gt"],
+        mel_mask=out.frame_mask, phoneme_mask=batch.get("phoneme_mask"),
+        pitch_mask=batch.get("pitch_mask"), weights=weights,
+    )
+    mark("forward")
+    grads = torch.autograd.grad(total, state.opt.params)
+    mark("backward")
+    metrics["grad_norm"] = global_norm(grads)
+    state.opt.step(grads, norm=metrics["grad_norm"])
+    metrics["lr"] = torch.full((), current_lr(stage, state.step), dtype=torch.float32,
+                               device=teacher.device)
+    if state.ema is not None:
+        ema_update(state.ema, model, stage.ema_decay)
+    mark("optimizer")
+    state.step += 1
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_acoustic_step(cfg: TTSConfig) -> Callable:
+    """The step bound to the config: (state, batch, rng) -> metrics."""
+    tr = cfg.training.acoustic
+    return functools.partial(
+        acoustic_train_step, weights=cfg.loss_weights,
+        scheduled_sampling=tr.scheduled_sampling, mixed_precision=tr.mixed_precision,
+        stage=tr,
+    )

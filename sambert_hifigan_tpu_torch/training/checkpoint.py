@@ -1,43 +1,58 @@
-"""Checkpoints of the vocoder train state: `step_<n>/state.pt` (a
-`torch.save` of the state dicts: generator, MSD, MPD, both optimizers, the
-EMA generator, the step) and `step_<n>/meta.json` (the step, the mel-config
+"""Checkpoints of a train state: `step_<n>/state.pt` (a `torch.save` of the
+state dicts) and `step_<n>/meta.json` (the step, the mel-config
 fingerprint, the save precision, whether an EMA is inside), written last:
 a directory without it is an aborted save and is ignored.
 
+The payload is the train state's own `state_dict()` (train_state.py): of
+an `AcousticTrainState`, the model, its optimizer, the EMA model, the step;
+of a `VocoderTrainState`, generator, MSD, MPD, both optimizers, the EMA
+generator, the step.
+
 A checkpoint trained under another mel configuration is refused (the
-train/infer invariant).  `precision="bf16"` stores the discriminators'
-weights and buffers and every optimizer moment in bf16, about half of a
-GAN checkpoint; the generator and its EMA, which inference loads, stay f32.
-The last `keep` checkpoints are kept.  Saves are synchronous.
+train/infer invariant).  `precision="bf16"` stores the state's `BF16_KEYS`
+in bf16: every optimizer moment (and the discriminators' weights and
+buffers); the models that
+inference loads, and their EMA copies, stay f32.  The last `keep`
+checkpoints are kept.
+
+`save(..., background=True)` copies the state on the device, in stream
+order (so the next step may update it in place at once), and a thread
+brings the copy to the host and writes it.  One save is in flight at a
+time; a failed one raises at the next `save` or `wait`, and `drain`
+returns its error instead, for the paths that must still save.
 """
 
 from __future__ import annotations
 
 import json
 import shutil
+import threading
 from pathlib import Path
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
 from ..config import AudioConfig, ConfigError, mel_config_fingerprint
-from .optim import ema_copy
-from .train_state import VocoderTrainState
+from .train_state import AcousticTrainState, VocoderTrainState
 
-# what precision="bf16" downcasts: the discriminators and the optimizers
-_BF16_FIELDS = ("msd", "mpd", "g_opt", "d_opt")
+TrainState = Union[AcousticTrainState, VocoderTrainState]
+
+
+def _map(fn, tree: Any, skip: Tuple[str, ...] = ()) -> Any:
+    """fn on every tensor of a nested dict/list, but those under a key in
+    `skip`."""
+    if isinstance(tree, dict):
+        return {k: v if k in skip else _map(fn, v, skip) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, skip) for v in tree)
+    return fn(tree) if torch.is_tensor(tree) else tree
 
 
 def _to_bf16(tree: Any) -> Any:
     """Every float32 tensor of a nested dict/list as bf16, except the
     optimizers' step counters."""
-    if isinstance(tree, dict):
-        return {k: tree[k] if k == "step" else _to_bf16(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_bf16(v) for v in tree)
-    if torch.is_tensor(tree) and tree.dtype == torch.float32:
-        return tree.to(torch.bfloat16)
-    return tree
+    return _map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, tree,
+                skip=("step",))
 
 
 class CheckpointManager:
@@ -46,6 +61,8 @@ class CheckpointManager:
         self.directory.mkdir(parents=True, exist_ok=True)
         self.audio = audio
         self.keep = keep
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_error: Optional[BaseException] = None
 
     def _step_dir(self, step: int) -> Path:
         return self.directory / f"step_{step:09d}"
@@ -53,25 +70,56 @@ class CheckpointManager:
     def _fingerprint(self) -> list:
         return list(map(str, mel_config_fingerprint(self.audio)))
 
-    def save(self, step: int, state: VocoderTrainState, precision: Optional[str] = None) -> None:
+    def save(self, step: int, state: TrainState, precision: Optional[str] = None,
+             background: bool = False) -> None:
+        """Write a checkpoint of `state` at `step`; with `background`, on a
+        thread, from a copy made on the device (see the module docstring)."""
         if precision not in (None, "f32", "bf16"):
             raise ValueError(f"unknown save precision: {precision!r}")
-        model = state.model
-        payload = {
-            "step": int(step),
-            "generator": model.generator.state_dict(),
-            "msd": model.msd.state_dict(),
-            "mpd": model.mpd.state_dict(),
-            "g_opt": state.g_opt.state_dict(),
-            "d_opt": state.d_opt.state_dict(),
-            "g_ema": None if state.g_ema is None else state.g_ema.state_dict(),
-        }
+        payload = state.state_dict()
+        payload["step"] = int(step)
         if precision == "bf16":
-            payload.update({k: _to_bf16(payload[k]) for k in _BF16_FIELDS})
+            payload.update({k: _to_bf16(payload[k]) for k in state.BF16_KEYS})
         meta = {"step": int(step), "mel_fingerprint": self._fingerprint(),
-                "ema": state.g_ema is not None}
+                "ema": payload[state.EMA_KEY] is not None}
         if precision:
             meta["precision"] = precision
+        if not background:
+            self.wait()
+            self._write(step, payload, meta)
+            return
+        snapshot = _map(torch.clone, payload)  # enqueued before the next step's updates
+        self.wait()
+
+        def run():
+            try:
+                self._write(step, _map(lambda t: t.cpu(), snapshot), meta)
+            except Exception as e:  # noqa: BLE001 — raised by the next wait()
+                self._save_error = e
+
+        self._save_thread = threading.Thread(target=run, name=f"ckpt-save-{step}", daemon=True)
+        self._save_thread.start()
+
+    def wait(self) -> None:
+        """Block until the background save in flight, if any, is written;
+        raise its error if it failed."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        if self._save_error is not None:
+            err, self._save_error = self._save_error, None
+            raise err
+
+    def drain(self) -> Optional[BaseException]:
+        """`wait` that returns a failed background save's error instead of
+        raising it."""
+        try:
+            self.wait()
+        except Exception as e:  # noqa: BLE001 — handed to the caller
+            return e
+        return None
+
+    def _write(self, step: int, payload: dict, meta: dict) -> None:
         path = self._step_dir(step)
         if path.exists():  # an aborted save, or a save of the same step again
             shutil.rmtree(path)
@@ -93,7 +141,7 @@ class CheckpointManager:
         return json.loads((self._step_dir(step) / "meta.json").read_text())
 
     def has_ema(self, step: Optional[int] = None) -> bool:
-        """Whether the (latest or given) checkpoint carries an EMA generator."""
+        """Whether the (latest or given) checkpoint carries an EMA model."""
         step = self.latest_step() if step is None else step
         return step is not None and bool(self._meta(step).get("ema", False))
 
@@ -114,26 +162,12 @@ class CheckpointManager:
                              weights_only=True)
         return payload, step
 
-    def restore(self, state: VocoderTrainState, step: Optional[int] = None) -> int:
+    def restore(self, state: TrainState, step: Optional[int] = None) -> int:
         """Load the (latest or given) checkpoint into `state` in place; returns
-        its step.  Float tensors come back in the state's own dtypes.  An EMA
-        in the checkpoint that the state does not carry is dropped; an EMA the
-        state wants that the checkpoint lacks starts from the restored
-        generator."""
+        its step.  Float tensors come back in the state's own dtypes."""
         # loaded to the host: load_state_dict copies into the modules' own
         # tensors, and the optimizers keep their step counts on the host as
         # torch.optim does (a count on the card would cost a sync a step)
         payload, step = self.restore_tree(step)
-        model = state.model
-        model.generator.load_state_dict(payload["generator"])
-        model.msd.load_state_dict(payload["msd"])
-        model.mpd.load_state_dict(payload["mpd"])
-        state.g_opt.load_state_dict(payload["g_opt"])
-        state.d_opt.load_state_dict(payload["d_opt"])
-        if state.g_ema is not None:
-            if payload["g_ema"] is not None:
-                state.g_ema.load_state_dict(payload["g_ema"])
-            else:
-                state.g_ema = ema_copy(model.generator)
-        state.step = int(payload["step"])
+        state.load_state_dict(payload)
         return step

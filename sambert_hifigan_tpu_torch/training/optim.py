@@ -23,7 +23,9 @@ this is the same function in torch:
 
 from __future__ import annotations
 
+import argparse
 import copy
+import dataclasses
 import math
 from typing import Callable, Optional, Sequence
 
@@ -91,13 +93,16 @@ def current_lr(tr: TrainStageConfig, step: int, base_lr: Optional[float] = None)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
+    """sqrt of the sum of squares of every element (optax.global_norm), from
+    one foreach launch of the per-tensor norms."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
 class Optimizer:
     """clip? -> AdamW(schedule), accumulated over accumulate_steps
-    micro-steps.  `step(grads)` takes the gradients of `params` in order."""
+    micro-steps.  `step(grads, norm)` takes the gradients of `params` in
+    order and, optionally, their `global_norm` when the caller has it
+    already: the clip reuses it unless accumulating."""
 
     def __init__(self, params: Sequence[nn.Parameter], tr: TrainStageConfig,
                  base_lr: Optional[float] = None):
@@ -112,16 +117,17 @@ class Optimizer:
         self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else []
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
+    def step(self, grads: Sequence[torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> None:
         if self.k > 1:
             for a, g in zip(self.acc, grads):
                 a.add_((g - a) / (self.mini_step + 1))
             self.mini_step += 1
             if self.mini_step < self.k:
                 return
-            grads = self.acc
+            grads, norm = self.acc, None
         if self.clip is not None:
-            norm = global_norm(grads)
+            norm = global_norm(grads) if norm is None else norm
             grads = [torch.where(norm < self.clip, g, g / norm * self.clip) for g in grads]
         for p, g in zip(self.params, grads):
             p.grad = g
@@ -171,3 +177,43 @@ def maybe_init_ema(tr: TrainStageConfig, module: nn.Module) -> Optional[nn.Modul
 def inference_params(module: nn.Module, ema: Optional[nn.Module]) -> nn.Module:
     """Prefer the EMA copy for inference and eval when it exists."""
     return module if ema is None else ema
+
+
+# ---- the trainers' command lines ----------------------------------------------
+
+# (flag, field of TrainStageConfig, type, help) shared by both trainers
+_STAGE_FLAGS = (
+    ("--lr-schedule", "lr_schedule", str, "learning-rate schedule: constant | exponential | "
+     "warmup_cosine"),
+    ("--lr-decay-gamma", "lr_decay_gamma", float,
+     "exponential: multiply lr by this every --lr-decay-steps"),
+    ("--warmup-steps", "warmup_steps", int, "linear LR warmup steps (any schedule)"),
+    ("--lr-total-steps", "lr_total_steps", int,
+     "warmup_cosine: the step at which the cosine reaches its floor"),
+    ("--lr-decay-steps", "lr_decay_steps", int, "exponential: decay interval in steps"),
+    ("--ema-decay", "ema_decay", float,
+     "EMA decay of the trained parameters (0 = off; inference prefers the EMA copy)"),
+    ("--accumulate-steps", "accumulate_steps", int,
+     "average k micro-batch gradients into one optimizer update"),
+)
+
+
+def add_stage_flags(p: argparse.ArgumentParser) -> None:
+    """The optimizer flags both trainers take, each overriding a field of
+    the stage's TrainStageConfig when given."""
+    for flag, field, typ, help_ in _STAGE_FLAGS:
+        kw = {"choices": ["constant", "exponential", "warmup_cosine"]} if field == "lr_schedule" \
+            else {}
+        p.add_argument(flag, dest=field, metavar=field.split('_')[-1].upper(), type=typ,
+                       default=None, help=help_, **kw)
+
+
+def stage_overrides(tr: TrainStageConfig, args: argparse.Namespace,
+                    extra: Sequence[str] = ()) -> TrainStageConfig:
+    """`tr` with the flags of `add_stage_flags` (and the `extra` fields of
+    the same names in `args`) that were given."""
+    for field in [f for _, f, _, _ in _STAGE_FLAGS] + list(extra):
+        val = getattr(args, field)
+        if val is not None:
+            tr = dataclasses.replace(tr, **{field: val})
+    return tr

@@ -80,6 +80,12 @@ def generator_for_inference(state: VocoderTrainState) -> HiFiGANGenerator:
     return inference_params(state.model.generator, state.g_ema)
 
 
+def generator_params_from_tree(tree: dict) -> dict:
+    """The same choice from a checkpoint's payload (`restore_tree`): a
+    state_dict of the generator."""
+    return tree.get("g_ema") or tree["generator"]
+
+
 def _f32(tensors) -> List:
     """Every tensor of a (nested) list cast to float32."""
     return [_f32(t) if isinstance(t, list) else t.float() for t in tensors]
@@ -121,10 +127,10 @@ def vocoder_train_step(
             wav_real, wav_fake.detach(), dtype, advance=True)
         d_loss, d_metrics = vocoder_discriminator_loss(_f32(msd_ro + mpd_ro), _f32(msd_fo + mpd_fo))
         d_grads = torch.autograd.grad(d_loss, d_params)
-        if d_update_every <= 1 or state.step % d_update_every == 0:
-            state.d_opt.step(d_grads)
-        metrics.update(d_metrics)
         metrics["d_grad_norm"] = global_norm(d_grads)
+        if d_update_every <= 1 or state.step % d_update_every == 0:
+            state.d_opt.step(d_grads, norm=metrics["d_grad_norm"])
+        metrics.update(d_metrics)
     else:
         metrics["disc_loss"] = zero
     mark("d_step")
@@ -144,10 +150,10 @@ def vocoder_train_step(
     g_loss, g_metrics = vocoder_generator_loss(
         wav_real, wav_fake, audio, loss_mode=loss_mode, weights=weights, **kwargs)
     g_grads = torch.autograd.grad(g_loss, state.g_opt.params)
-    state.g_opt.step(g_grads)
+    metrics["g_grad_norm"] = global_norm(g_grads)
+    state.g_opt.step(g_grads, norm=metrics["g_grad_norm"])
     mark("g_step")
     metrics.update(g_metrics)
-    metrics["g_grad_norm"] = global_norm(g_grads)
     metrics["lr"] = torch.full((), current_lr(stage, state.step), dtype=torch.float32, device=dev)
     if not train_d:
         metrics["d_grad_norm"] = zero

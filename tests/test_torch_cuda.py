@@ -8,6 +8,9 @@ a machine run it without the conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+# bind the stdlib `profile` before a test puts scripts/ (and its profile.py) on
+# sys.path: torch.optim imports torch._dynamo, and so cProfile, at first use
+import cProfile  # noqa: F401
 import numpy as np
 import pytest
 import torch
@@ -314,3 +317,122 @@ def test_vocoder_checkpoint_restores_on_the_card(cuda_device, tmp_path):
     metrics = make_vocoder_step(cfg)(fresh, torch.from_numpy(mel).to(cuda_device),
                                      torch.from_numpy(wav).to(cuda_device))
     assert all(np.isfinite(float(v)) for v in metrics.values()) and fresh.step == 2
+
+
+def _acoustic_train_cfg(dropout=0.0, **stage):
+    """The default config with a small acoustic model (d 64, 2 + 2 layers,
+    FFN 128) and the stage's overrides (f32 unless given)."""
+    import dataclasses
+
+    from sambert_hifigan_tpu_torch import config as c
+
+    cfg = c.default_config()
+    am = dataclasses.replace(
+        cfg.acoustic_model, d_model=64,
+        encoder=c.EncoderConfig(n_layers=2, n_heads=2, d_ff=128, dropout=dropout),
+        variance_adaptor=c.VarianceAdaptorConfig(predictor_dropout=dropout),
+        decoder=c.DecoderConfig(n_layers=2, n_heads=4, d_ff=128, dropout=dropout, max_len=128))
+    tr = dataclasses.replace(cfg.training.acoustic, **{"mixed_precision": False, **stage})
+    return dataclasses.replace(cfg, acoustic_model=am,
+                               training=dataclasses.replace(cfg.training, acoustic=tr))
+
+
+def _acoustic_steps(cfg, dev, n=1, seed=0):
+    """A seeded acoustic train state on `dev` after n steps on synthetic
+    batches (B 2, 16 phonemes, 64 frames) -> (state, the last metrics)."""
+    from sambert_hifigan_tpu_torch.data.dataset import batch_to_device, synthetic_batch
+    from sambert_hifigan_tpu_torch.training.acoustic_trainer import (
+        init_acoustic_state,
+        make_acoustic_step,
+    )
+    from sambert_hifigan_tpu_torch.weights import random_acoustic_model
+
+    model = random_acoustic_model(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    state = init_acoustic_state(model, cfg)
+    step = make_acoustic_step(cfg)
+    rng = torch.Generator().manual_seed(seed + 1)
+    metrics = {}
+    for i in range(n):
+        batch = batch_to_device(synthetic_batch(cfg, 2, tph=16, tfrm=64, seed=seed + i), dev)
+        metrics = step(state, batch, rng)
+    return state, {k: float(v) for k, v in metrics.items()}
+
+
+def test_acoustic_step_on_card_matches_cpu(cuda_device):
+    """One f32 acoustic step (dropout 0, TF32 off) on the card and on the
+    CPU from the same seeded weights and batch: every metric within 1e-4
+    (relative), every parameter within 2 lr, all but 1e-3 of them within
+    1e-5 (Adam's first step is ~lr sign(g))."""
+    cfg = _acoustic_train_cfg()
+    card, m_card = _acoustic_steps(cfg, cuda_device)
+    cpu, m_cpu = _acoustic_steps(cfg, torch.device("cpu"))
+    assert sorted(m_card) == sorted(m_cpu)
+    for k, want in m_cpu.items():
+        assert abs(m_card[k] - want) <= 1e-4 * max(abs(want), 1e-8), (k, m_card[k], want)
+    lr = cfg.training.acoustic.learning_rate
+    flipped = total = 0
+    for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):
+        diff = (a.cpu() - b).abs()
+        assert diff.max() <= 2 * lr, k
+        flipped += int((diff > 1e-5).sum())
+        total += diff.numel()
+    assert flipped <= 1e-3 * total, (flipped, total)
+
+
+def test_acoustic_checkpoint_restores_on_the_card(cuda_device, tmp_path):
+    """bf16 steps with dropout, scheduled sampling and an EMA on the card; a
+    background save, then a step that updates the state in place while the
+    thread writes: the checkpoint holds the state of the call, restored
+    into a fresh state on the card (moments on the card, step counts on
+    the host), which steps on."""
+    from sambert_hifigan_tpu_torch.training.checkpoint import CheckpointManager
+
+    cfg = _acoustic_train_cfg(dropout=0.1, mixed_precision=True, scheduled_sampling=0.5,
+                              ema_decay=0.9)
+    state, metrics = _acoustic_steps(cfg, cuda_device, n=2)
+    assert all(np.isfinite(v) for v in metrics.values())
+    saved = {k: v.clone() for k, v in state.model.state_dict().items()}
+    ckpt = CheckpointManager(tmp_path, cfg.audio)
+    ckpt.save(2, state, background=True)
+    from sambert_hifigan_tpu_torch.data.dataset import batch_to_device, synthetic_batch
+    from sambert_hifigan_tpu_torch.training.acoustic_trainer import make_acoustic_step
+
+    step = make_acoustic_step(cfg)
+    step(state, batch_to_device(synthetic_batch(cfg, 2, 16, 64, seed=9), cuda_device),
+         torch.Generator().manual_seed(9))
+    ckpt.wait()
+    fresh, _ = _acoustic_steps(cfg, cuda_device, n=0, seed=5)
+    assert ckpt.restore(fresh) == 2 and fresh.step == 2
+    for k, v in fresh.model.state_dict().items():
+        assert torch.equal(v, saved[k]), k
+    for st in fresh.opt.adamw.state.values():
+        assert st["step"].device.type == "cpu" and st["exp_avg"].device.type == "cuda"
+    metrics = step(fresh, batch_to_device(synthetic_batch(cfg, 2, 16, 64, seed=3), cuda_device),
+                   torch.Generator().manual_seed(3))
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and fresh.step == 3
+
+
+def test_trained_decoder_through_k1_matches_plain(cuda_device):
+    """One bf16 step of the full-width acoustic model (K1's widths), then
+    its decoder packed for K1: one launch decodes 48 frames of a padded
+    memory, within phase 2's tolerance (mean 1e-2, max 0.1) of K1's plain
+    version on the same packed weights."""
+    from sambert_hifigan_tpu_torch.config import default_config
+
+    state, metrics = _acoustic_steps(default_config(), cuda_device)
+    assert all(np.isfinite(v) for v in metrics.values())
+    dec = state.model.ar_decoder.eval()
+    w = p_ar.pack_decoder(dec, torch.bfloat16)
+    b, t = 2, 48
+    hvar = torch.from_numpy(_np(10, b, t, 256)).to(cuda_device)
+    pad = torch.zeros(b, t, dtype=torch.bool, device=cuda_device)
+    pad[1, 30:] = True
+    memory = p_ar.decode_memory(dec, hvar, pad, w)
+    before = k1.launches
+    out = k1.ar_decode(w, *memory, t)
+    torch.cuda.synchronize()
+    assert k1.launches - before == 1
+    ref = k1.ar_decode_plain(w, *memory, k1.init_carry(w, b, t), 0, t)[1]
+    err = (out - ref).abs()
+    assert bool(torch.isfinite(out).all())
+    assert err.mean() < 1e-2 and err.max() < 0.1, (err.mean(), err.max())

@@ -16,6 +16,9 @@ port's gradients (they agree with JAX's within the grad-norm bound).  The
 JAX steps are compiled once per case.
 """
 
+# bind the stdlib `profile` before a test puts scripts/ (and its profile.py) on
+# sys.path: torch.optim imports torch._dynamo, and so cProfile, at first use
+import cProfile  # noqa: F401
 import dataclasses
 
 import jax
@@ -101,9 +104,9 @@ class Pair:
 
     @staticmethod
     def _recording(step, store):
-        def record(grads):
+        def record(grads, **kw):
             store.append([g.detach().clone() for g in grads])
-            step(grads)
+            step(grads, **kw)
         return record
 
     def applied_grads(self):
@@ -350,3 +353,22 @@ def test_train_vocoder_entry_point(tmp_path, monkeypatch, capsys):
         train_vocoder.main(["--synthetic", "1", *common])
     with pytest.raises(SystemExit, match="dataset loader"):
         train_vocoder.main(["--metadata", "data/train/metadata.csv", *common])
+
+
+def test_optimizer_runs_after_scripts_shadow_profile():
+    """tests/test_serving.py's HTTP fixture puts scripts/ on sys.path, where
+    scripts/profile.py shadows the stdlib `profile` for every later first
+    import; torch.optim's first step imports torch._dynamo, which imports
+    cProfile, which imports `profile`.  In one process, in that order, the
+    port's optimizer test still passes (this module binds cProfile first)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    cmd = [sys.executable, "-m", "pytest", "-q", "-p", "no:xdist", "-p", "no:cacheprovider",
+           "-p", "no:randomly", "tests/test_serving.py::TestHTTPServer",
+           "tests/test_torch_vocoder_train.py::test_clip_by_global_norm_matches_optax"]
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-2000:]
+    assert "5 passed" in run.stdout, run.stdout[-2000:]

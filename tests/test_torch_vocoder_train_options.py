@@ -6,6 +6,9 @@ tests/test_torch_vocoder_train.py (split from it so that the suite's
 workers compile the JAX steps in parallel).
 """
 
+# bind the stdlib `profile` before a test puts scripts/ (and its profile.py) on
+# sys.path: torch.optim imports torch._dynamo, and so cProfile, at first use
+import cProfile  # noqa: F401
 import numpy as np
 import pytest
 import torch
