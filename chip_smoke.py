@@ -28,8 +28,16 @@ against the CPU, round-trips a checkpoint (a background save included),
 runs the trained decoder through K1 against its plain version and
 `synthesize_batch` with the trained model, then runs `train_acoustic
 --synthetic 2` on the card and `inference --acoustic-checkpoint` on what it
-wrote.  Any failed phase raises and the script exits non-zero.  It imports
-nothing of JAX.
+wrote.  Phase 9 runs the data pipeline on the card: a toy corpus of 64
+utterances (`make_toy_dataset`), every wav through the native decoder
+bit-equal to the numpy reader, `TTSDataset` features on the card (cold and
+warm utterances/s; 4 utterances against the CPU), `compute_alignments` (200
+aligner steps), `train_acoustic --metadata` at full width (12 steps with
+--prefetch on, then off; a profiled step and the device's idle share) and
+`train_vocoder --metadata` (6 steps), then `build_pipeline` from the two
+checkpoints: `synthesize_batch` of 4 corpus texts through K1 and K2, and
+mel-MAE and MCD of a copy synthesis.  Any failed phase raises and the
+script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
 kernel's launches, error and times, and the card's name and power limit as
@@ -947,7 +955,6 @@ def phase_acoustic_train(pipe, dev):
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
     from sambert_hifigan_tpu_torch.ops import mrf as k2
     from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
-    from sambert_hifigan_tpu_torch.text.frontend import pick_bucket
     from sambert_hifigan_tpu_torch.training.acoustic_trainer import (
         acoustic_inference_params, init_acoustic_state, make_acoustic_step)
     from sambert_hifigan_tpu_torch.training.metrics import to_host
@@ -1040,10 +1047,7 @@ def phase_acoustic_train(pipe, dev):
     wavs = tts.synthesize_batch(TEXTS)
     torch.cuda.synchronize()
     launches = {"ar_decode": k1.launches, "mrf": k2.launches}
-    totals = tts.text_to_mel(TEXTS).total_frames.cpu().tolist()
-    buckets = cfg.runtime.frame_buckets
-    used = bucket if max(totals) <= bucket else pick_bucket(min(max(totals), max(buckets)),
-                                                            buckets)
+    totals, want = expected_samples(tts, TEXTS)
     row["trained"] = dict(frame_bucket=bucket, k1_max_abs_err=err.max().item(),
                           k1_mean_abs_err=err.mean().item(),
                           ref_mean_abs=ref.abs().mean().item(), totals=totals,
@@ -1056,10 +1060,9 @@ def phase_acoustic_train(pipe, dev):
                              f"{bool(torch.isfinite(out).all())}")
     if not (err.mean().item() < K1_TOL_MEAN and err.max().item() < K1_TOL_MAX):
         raise AssertionError(f"the trained decoder through K1 outside tolerance: {row['trained']}")
-    for wav, total in zip(wavs, totals):
-        want = min(int(total), used) * tts.hop
-        if wav.shape != (want,) or not np.isfinite(wav).all():
-            raise AssertionError(f"trained synthesize_batch gave {wav.shape}, want {want}")
+    for wav, n in zip(wavs, want):
+        if wav.shape != (n,) or not np.isfinite(wav).all():
+            raise AssertionError(f"trained synthesize_batch gave {wav.shape}, want {n}")
     n_stages = len(tts.mrf_weights)
     if launches["ar_decode"] < 1 or launches["mrf"] != n_stages * launches["ar_decode"]:
         raise AssertionError(f"kernels not on the trained model's path: {launches}")
@@ -1068,6 +1071,20 @@ def phase_acoustic_train(pipe, dev):
         json.dumps(row["entry_points"]))
     log(f"[acoustic] phase 8 took {time.perf_counter() - t_phase:.1f} s")
     return row
+
+
+def expected_samples(tts, texts):
+    """(total_frames, each wav's length) of tts.synthesize_batch(texts):
+    min(total_frames, the frame bucket the batch ran in) * hop, where the
+    bucket is the first guess unless a row overflowed it."""
+    from sambert_hifigan_tpu_torch.text.frontend import pick_bucket
+
+    bucket = tts._initial_bucket(tts._frontend_args(texts)[0], 1.0)
+    totals = tts.text_to_mel(texts).total_frames.cpu().tolist()
+    buckets = tts.cfg.runtime.frame_buckets
+    used = bucket if max(totals) <= bucket else pick_bucket(min(max(totals), max(buckets)),
+                                                            buckets)
+    return totals, [min(int(t), used) * tts.hop for t in totals]
 
 
 def acoustic_entry_points(cfg):
@@ -1111,6 +1128,334 @@ def acoustic_entry_points(cfg):
         raise AssertionError(f"train_acoustic on the card and its checkpoint: {row}")
     if launches["ar_decode"] < 1 or launches["mrf"] != 4 * launches["ar_decode"] or not wav.size:
         raise AssertionError(f"inference --acoustic-checkpoint: {row}")
+    return row
+
+
+# ---- phase 9: the data pipeline ---------------------------------------------
+
+DATA_UTTS, DATA_SEED, DATA_COMPARE, ALIGN_STEPS = 64, 0, 4, 200
+DATA_AC_STEPS, DATA_VOC_STEPS, DATA_WARMUP = 12, 6, 2
+# card against CPU features, as tests/test_torch_data.py holds the port to
+# JAX on the CPU: the log-mel within 1e-3 where the CPU's log10 power is
+# above -6, 1e-2 below (f32 rounding of two FFT libraries at the noise
+# floor); energy within 1e-5; F0 within 1e-3 (relative) where both are
+# voiced, at most 1% of voiced flags differing (an argmax near-tie);
+# durations equal
+DATA_MEL_TOL_LOUD, DATA_MEL_TOL, DATA_MEL_LOUD = 1e-3, 1e-2, -6.0
+DATA_ENERGY_TOL, DATA_F0_REL, DATA_FLIP_SHARE = 1e-5, 1e-3, 0.01
+DATA_PHASE_LIMIT_S = 240.0  # a hung phase fails; the aim is under 90 s
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+class StepTimer:
+    """Times every step an entry point's loop runs: wraps the trainer's
+    step factory (`make_acoustic_step`, `make_vocoder_step`, looked up at
+    the entry point's call) so each step is timed on the host clock from
+    its call to a synchronize after it (step ms), and from one call to the
+    next (loop ms: the step plus the loop's wait for its batch)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.real = module, name, getattr(module, name)
+        self.starts, self.step_ms, self.shapes = [], [], set()
+
+    def __enter__(self):
+        import torch
+
+        def make(*args, **kwargs):
+            step = self.real(*args, **kwargs)
+
+            def timed(state, batch, *rest, **kw):
+                t0 = time.perf_counter()
+                self.starts.append(t0)
+                self.shapes.add(tuple(batch["mel_gt"].shape if isinstance(batch, dict)
+                                      else batch.shape))
+                out = step(state, batch, *rest, **kw)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+
+        setattr(self.module, self.name, make)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def summary(self, warmup: int) -> dict:
+        starts = self.starts[warmup:]
+        loops = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+        return dict(steps=len(self.step_ms), median_step_ms=median(self.step_ms[warmup:]),
+                    median_loop_ms=median(loops), step_ms=self.step_ms,
+                    batch_shapes=sorted(self.shapes))
+
+
+def native_decode_check(paths):
+    """Every corpus wav decoded by the native C++ reader, one at a time and
+    through its prefetcher, against the numpy reader, bit for bit."""
+    import numpy as np
+
+    from sambert_hifigan_tpu_torch.data import native_loader
+    from sambert_hifigan_tpu_torch.data.audio import load_wav
+
+    if not native_loader.native_available():
+        raise AssertionError("the native WAV decoder did not build")
+    t0 = time.perf_counter()
+    native = [native_loader.load_wav_native(p) for p in paths]
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    t0 = time.perf_counter()
+    plain = [load_wav(p) for p in paths]
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    unequal = [i for i, ((a, sa), (b, sb)) in enumerate(zip(native, plain))
+               if sa != sb or a.shape != b.shape or not np.array_equal(a, b)]
+    with native_loader.NativePrefetcher([str(p) for p in paths], n_threads=4) as pf:
+        delivered = {i: w for i, w, _ in pf}
+    prefetched_equal = sorted(delivered) == list(range(len(paths))) and all(
+        np.array_equal(w, plain[i][0]) for i, w in delivered.items())
+    row = dict(files=len(paths), unequal=unequal, prefetcher_equal=prefetched_equal,
+               native_ms_per_file=native_ms, numpy_ms_per_file=numpy_ms,
+               library=native_loader.library_path().name)
+    if unequal or not prefetched_equal:
+        raise AssertionError(f"native decode differs from the numpy reader: {row}")
+    return row
+
+
+def features_card_vs_cpu(card, cpu, utts):
+    """Features of `utts` extracted on the card against the CPU's."""
+    import numpy as np
+
+    row = dict(utterances=len(utts), mel_max_abs=0.0, mel_max_abs_loud=0.0,
+               energy_max_abs=0.0, f0_max_rel=0.0, voiced_flips=0, frames=0, dur_equal=True)
+    for u in utts:
+        a, b = card.load_features(u), cpu.load_features(u)
+        d = np.abs(a["mel"] - b["mel"])
+        loud = b["mel"] > DATA_MEL_LOUD
+        both = a["voiced"] & b["voiced"]
+        row["mel_max_abs"] = max(row["mel_max_abs"], float(d.max()))
+        row["mel_max_abs_loud"] = max(row["mel_max_abs_loud"], float(d[loud].max()))
+        row["energy_max_abs"] = max(row["energy_max_abs"],
+                                    float(np.abs(a["energy"] - b["energy"]).max()))
+        if both.any():
+            rel = np.abs(a["f0"] - b["f0"])[both] / b["f0"][both]
+            row["f0_max_rel"] = max(row["f0_max_rel"], float(rel.max()))
+        row["voiced_flips"] += int((a["voiced"] != b["voiced"]).sum())
+        row["frames"] += int(b["voiced"].size)
+        row["dur_equal"] &= bool(np.array_equal(a["dur"], b["dur"]))
+    row["voiced_flip_share"] = row["voiced_flips"] / row["frames"]
+    if not (row["mel_max_abs"] <= DATA_MEL_TOL and row["mel_max_abs_loud"] <= DATA_MEL_TOL_LOUD
+            and row["energy_max_abs"] <= DATA_ENERGY_TOL and row["f0_max_rel"] <= DATA_F0_REL
+            and row["voiced_flip_share"] <= DATA_FLIP_SHARE and row["dur_equal"]):
+        raise AssertionError(f"card features depart from the CPU's: {row}")
+    return row
+
+
+def phase_data(pipe, dev):
+    """The data pipeline on the card, corpus to synthesis: a toy corpus of
+    64 utterances (make_toy_dataset, seed 0); every wav decoded natively,
+    bit-equal to the numpy reader; TTSDataset features on the card, cold
+    (extracted, cache written) and warm (memo), 4 utterances against the
+    CPU; compute_alignments on the card (200 aligner steps; the loss must
+    fall, every duration sums to its frames and is >= 1); train_acoustic
+    --metadata at the default config (full width and depth, bf16) for 12
+    steps with --prefetch on, then off, and a profiled step on a corpus
+    batch; train_vocoder --metadata for 6 steps; build_pipeline from the
+    two checkpoints, synthesize_batch of 4 corpus texts through K1 and K2
+    with exact lengths; mel-MAE and MCD of a copy synthesis against its
+    recording (recorded, not gated)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sambert_hifigan_tpu_torch import train_acoustic, train_vocoder
+    from sambert_hifigan_tpu_torch.data import aligner, native_loader
+    from sambert_hifigan_tpu_torch.data import dataset as data
+    from sambert_hifigan_tpu_torch.data.audio import load_wav
+    from sambert_hifigan_tpu_torch.data.features import uniform_durations
+    from sambert_hifigan_tpu_torch.make_toy_dataset import make_toy_dataset
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import build_pipeline
+    from sambert_hifigan_tpu_torch.training import acoustic_trainer, vocoder_trainer
+    from sambert_hifigan_tpu_torch.utils.eval_metrics import mcd, mel_mae
+
+    t_phase = time.perf_counter()
+    cfg = pipe.cfg
+    row = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        meta = make_toy_dataset(tmp / "toy", n=DATA_UTTS, seed=DATA_SEED, verbose=False)
+        make_s = time.perf_counter() - t0
+        utts = data.read_metadata(str(meta))
+        paths = [tmp / "toy" / u.wav_path for u in utts]
+        secs = [load_wav(p)[0].shape[-1] / cfg.audio.sample_rate for p in paths]
+        row["corpus"] = dict(utterances=len(utts), seed=DATA_SEED, make_s=make_s,
+                             min_s=min(secs), max_s=max(secs), total_s=sum(secs))
+        log("[data] corpus", json.dumps(row["corpus"]))
+        row["native"] = native_decode_check(paths)
+        log("[data] native decode", json.dumps(row["native"]))
+
+        # features on the card: cold (extracted and cached), then warm (memo);
+        # every wav must come through the native decoder
+        decodes = {"native": 0, "numpy": 0}
+        real = (native_loader.load_wav_native, data.load_wav)
+
+        def counted(name, fn):
+            def call(path):
+                decodes[name] += 1
+                return fn(path)
+            return call
+
+        native_loader.load_wav_native = counted("native", real[0])
+        data.load_wav = counted("numpy", real[1])
+        try:
+            ds = data.TTSDataset(str(meta), cfg, device=dev)
+            t0 = time.perf_counter()
+            feats = [ds.load_features(u) for u in utts]
+            cold_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for u in utts:
+                ds.load_features(u)
+            warm_s = time.perf_counter() - t0
+        finally:
+            native_loader.load_wav_native, data.load_wav = real
+        frames = [f["mel"].shape[0] for f in feats]
+        row["features"] = dict(cold_s=cold_s, cold_utt_per_s=len(utts) / cold_s, warm_s=warm_s,
+                               warm_utt_per_s=len(utts) / warm_s, decodes=decodes,
+                               min_frames=min(frames), max_frames=max(frames),
+                               total_frames=sum(frames))
+        log("[data] features on the card", json.dumps(row["features"]))
+        if decodes != {"native": len(utts), "numpy": 0}:
+            raise AssertionError(f"wavs not decoded natively: {decodes}")
+        cpu = data.TTSDataset(str(meta), cfg, device="cpu", cache_dir=str(tmp / "cache_cpu"))
+        row["card_vs_cpu"] = features_card_vs_cpu(ds, cpu, utts[:DATA_COMPARE])
+        log("[data] features, card vs CPU", json.dumps(row["card_vs_cpu"]))
+
+        # alignment on the card; the aligner's training timed apart from the Viterbi pass
+        train_s = []
+        real_train = aligner.train_ctc_aligner
+
+        def timed_train(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_train(*args, **kwargs)
+            torch.cuda.synchronize()
+            train_s.append(time.perf_counter() - t0)
+            return out
+
+        aligner.train_ctc_aligner = timed_train
+        try:
+            t0 = time.perf_counter()
+            losses = ds.compute_alignments(steps=ALIGN_STEPS)
+            align_s = time.perf_counter() - t0
+        finally:
+            aligner.train_ctc_aligner = real_train
+        feats = [ds.load_features(u) for u in utts]
+        broken = [u.wav_path for u, f in zip(utts, feats)
+                  if f["dur"].sum() != f["mel"].shape[0] or (f["dur"] < 1).any()]
+        changed = sum(not np.array_equal(f["dur"], uniform_durations(len(f["ph_ids"]),
+                                                                     f["mel"].shape[0]))
+                      for f in feats)
+        row["align"] = dict(steps=ALIGN_STEPS, ms_per_step=train_s[0] * 1e3 / ALIGN_STEPS,
+                            viterbi_s=align_s - train_s[0], total_s=align_s,
+                            loss_first=losses[0], loss_last=losses[-1],
+                            loss_min=min(losses), durations_changed=changed)
+        log("[data] compute_alignments on the card", json.dumps(row["align"]))
+        if broken or not losses[-1] < losses[0]:
+            raise AssertionError(f"alignment: loss {losses[0]} -> {losses[-1]}, contract broken "
+                                 f"by {broken}")
+
+        # the host side of a batch, memo warm: collate, then the pinned copy
+        b = cfg.training.acoustic.batch_size
+        t0 = time.perf_counter()
+        host_batches = list(ds.batches(b, seed=0))
+        collate_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for hb in host_batches:
+            data.batch_to_device(hb, dev)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+
+        # train_acoustic --metadata, prefetch on and off; no kernel in a train step
+        k1.launches = 0
+        k2.launches = 0
+        common = ["--metadata", str(meta), "--log-dir", str(tmp / "logs")]
+        runs = {}
+        for mode in ("on", "off"):
+            with StepTimer(acoustic_trainer, "make_acoustic_step") as timer:
+                state = train_acoustic.main([*common, "--steps", str(DATA_AC_STEPS),
+                                             "--prefetch", mode,
+                                             "--checkpoint-dir", str(tmp / f"ac_{mode}")])
+            runs[mode] = dict(timer.summary(DATA_WARMUP), step=state.step)
+        step = acoustic_trainer.make_acoustic_step(cfg)
+        batch = data.batch_to_device(host_batches[0], dev)
+        top = profile_step(lambda: step(state, batch, torch.Generator().manual_seed(5)))
+        row["acoustic"] = dict(
+            B=b, host_collate_ms=collate_ms, host_copy_ms=copy_ms, prefetch_on=runs["on"],
+            prefetch_off=runs["off"], profiled_batch=list(batch["mel_gt"].shape),
+            profile=top, device_idle_share=1 - top["device_ms"] / runs["on"]["median_step_ms"],
+            device=next(state.model.parameters()).device.type,
+            checkpoints=sorted(p.parent.name for p in (tmp / "ac_on").glob("step_*/state.pt")))
+        log("[data] train_acoustic --metadata", json.dumps(row["acoustic"]))
+        if row["acoustic"]["device"] != dev.type or any(r["step"] != DATA_AC_STEPS
+                                                         for r in runs.values()):
+            raise AssertionError(f"train_acoustic --metadata: {row['acoustic']}")
+        if row["acoustic"]["checkpoints"] != [f"step_{DATA_AC_STEPS:09d}"]:
+            raise AssertionError(f"acoustic checkpoint: {row['acoustic']['checkpoints']}")
+
+        with StepTimer(vocoder_trainer, "make_vocoder_step") as timer:
+            vstate = train_vocoder.main([*common, "--steps", str(DATA_VOC_STEPS),
+                                         "--prefetch", "on", "--save-precision", "bf16",
+                                         "--checkpoint-dir", str(tmp / "voc")])
+        row["vocoder"] = dict(timer.summary(DATA_WARMUP), step=vstate.step,
+                              checkpoints=sorted(p.parent.name for p in
+                                                 (tmp / "voc").glob("step_*/state.pt")))
+        log("[data] train_vocoder --metadata", json.dumps(row["vocoder"]))
+        if vstate.step != DATA_VOC_STEPS or len(row["vocoder"]["checkpoints"]) != 1:
+            raise AssertionError(f"train_vocoder --metadata: {row['vocoder']}")
+        if (k1.launches, k2.launches) != (0, 0):
+            raise AssertionError(f"a kernel launched in a --metadata train step: "
+                                 f"K1 {k1.launches}, K2 {k2.launches}")
+
+        # the two checkpoints through the pipeline: K1 once per decode, K2 four times
+        tts = build_pipeline(cfg, device=dev, acoustic_checkpoint=str(tmp / "ac_on"),
+                             vocoder_checkpoint=str(tmp / "voc"))
+        texts = [u.text for u in utts[:4]]
+        k1.launches = 0
+        k2.launches = 0
+        wavs = tts.synthesize_batch(texts)
+        torch.cuda.synchronize()
+        synth = {"ar_decode": k1.launches, "mrf": k2.launches}
+        totals, want = expected_samples(tts, texts)
+        decodes_k1 = 1 if max(totals) <= tts._initial_bucket(tts._frontend_args(texts)[0],
+                                                             1.0) else 2
+        f = feats[0]
+        k2.launches = 0
+        with torch.no_grad():
+            copy = tts.vocode(torch.tensor(f["mel"], device=dev)[None])[0, 0].cpu().numpy()
+        copy_k2 = k2.launches
+        row["synthesis"] = dict(
+            texts=texts, totals=totals, wav_samples=[len(w) for w in wavs], want=want,
+            launches=synth, copy_synthesis_k2=copy_k2,
+            mel_mae=mel_mae(f["wav"], copy, cfg.audio, device=dev),
+            mcd=mcd(f["wav"], copy, cfg.audio, device=dev))
+        row["launches"] = {"ar_decode": synth["ar_decode"], "mrf": synth["mrf"] + copy_k2}
+        log("[data] synthesis from the --metadata checkpoints", json.dumps(row["synthesis"]))
+        for wav, n in zip(wavs, want):
+            if wav.shape != (n,) or not np.isfinite(wav).all():
+                raise AssertionError(f"synthesize_batch gave {wav.shape}, want {n}")
+        n_stages = len(tts.mrf_weights)
+        if synth != {"ar_decode": decodes_k1, "mrf": n_stages * decodes_k1} or copy_k2 != n_stages:
+            raise AssertionError(f"kernels on the --metadata checkpoints' path: {row['synthesis']}")
+        if copy.shape != (f["mel"].shape[0] * tts.hop,) or not np.isfinite(copy).all():
+            raise AssertionError(f"copy synthesis gave {copy.shape}")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[data] phase 9 took {row['phase_s']:.1f} s")
+    if row["phase_s"] > DATA_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 9 took {row['phase_s']:.1f} s (limit {DATA_PHASE_LIMIT_S})")
     return row
 
 
@@ -1166,6 +1511,7 @@ def main() -> int:
     phase_serving(pipe)
     train_row = phase_train(pipe, dev)
     acoustic_row = phase_acoustic_train(pipe, dev)
+    data_row = phase_data(pipe, dev)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -1176,6 +1522,7 @@ def main() -> int:
          "launches": launches["ar_decode"],
          "launches_stream": stream_launch_counts["ar_decode"], "launches_train": 0,
          "launches_acoustic_train": acoustic_row["trained"]["launches"]["ar_decode"],
+         "launches_data_train": data_row["launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -1186,6 +1533,7 @@ def main() -> int:
          "launches": launches["mrf"], "launches_stream": stream_launch_counts["mrf"],
          "launches_train": train_row["vocode"]["k2_launches"],
          "launches_acoustic_train": acoustic_row["trained"]["launches"]["mrf"],
+         "launches_data_train": data_row["launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -1199,7 +1547,9 @@ def main() -> int:
         "launches of one stream(TEXTS[0]); launches_train: phase 7's (12 train steps, "
         "then one vocode of the trained generator); launches_acoustic_train: phase 8's "
         "(its 15 full-width train steps and the small card-vs-CPU step, none; then the trained decoder once through K1 and one "
-        "synthesize_batch of the trained model)")
+        "synthesize_batch of the trained model); launches_data_train: phase 9's (the "
+        "aligner and every --metadata train step, none; then one synthesize_batch of 4 "
+        "corpus texts from the two checkpoints and one copy-synthesis vocode)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -78,12 +78,18 @@ def _sources(name: str) -> list:
     return seen
 
 
-def _target(name: str) -> Path:
+def hashed_target(name: str, sources, cmd) -> Path:
+    """`_build/<name>-<sha>.so`, keyed by the sources (files under `csrc/`)
+    and the compiler command, so a stale library is never loaded."""
     h = hashlib.sha256()
-    for path in _sources(name):
+    for path in sources:
         h.update(str(path.relative_to(CSRC)).encode() + b"\0" + path.read_bytes() + b"\0")
-    h.update("\0".join(_nvcc_cmd(name, Path("OUT"))).encode())
+    h.update("\0".join(cmd).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _target(name: str) -> Path:
+    return hashed_target(name, _sources(name), _nvcc_cmd(name, Path("OUT")))
 
 
 def _nvcc_cmd(name: str, out: Path) -> list:

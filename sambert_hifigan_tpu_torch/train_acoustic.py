@@ -1,27 +1,36 @@
 """Train the SAM-BERT acoustic model.
 
-  python -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20 \
-      [--batch-size 16] [--checkpoint-dir checkpoints/acoustic] [--resume] \
-      [--save-precision bf16] [--sync-save] [--scheduled-sampling 0.2] \
-      [--lr-schedule warmup_cosine --warmup-steps 100 --lr-total-steps 20] \
-      [--ema-decay 0.999] [--accumulate-steps 2] [--seed 0] [--device cpu]
+  python -m sambert_hifigan_tpu_torch.train_acoustic --metadata data/train/metadata.csv \
+      [--steps 200000] [--batch-size 16] [--checkpoint-dir checkpoints/acoustic] [--resume] \
+      [--prefetch {auto,on,off}] [--save-precision bf16] [--sync-save] \
+      [--scheduled-sampling 0.2] [--lr-schedule warmup_cosine --warmup-steps 100 \
+      --lr-total-steps 20] [--ema-decay 0.999] [--accumulate-steps 2] [--seed 0] [--device cpu]
+  python -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20    # no corpus
 
-Runs on the CUDA card unless --device cpu is given.  --synthetic N trains N
-steps on random batches made from --seed (16 phonemes, 64 frames each, as
-the JAX script's synthetic run); the weights are random from --seed too.
-Interval saves are written by a background thread from a copy made on the
-device (--sync-save writes them in the step loop).  Checkpoints carry the
-mel fingerprint: --resume refuses one trained under another mel
+Runs on the CUDA card unless --device cpu is given.  --metadata trains
+--steps steps on the corpus, in shuffled epochs of batches padded to the
+config's phoneme and frame buckets (TTSDataset: features extracted on the
+training device and cached; `preprocess` fills the cache first).
+--synthetic N trains N steps on random batches made from --seed (16
+phonemes, 64 frames each, as the JAX script's synthetic run).  The weights
+are random from --seed.  --prefetch on collates the next batches and
+copies them to the device on a background thread (data/prefetch.py);
+'auto' does so where the process has two or more cores.  Interval saves
+are written by a background thread from a copy made on the device
+(--sync-save writes them in the step loop).  Checkpoints carry the mel
+fingerprint: --resume refuses one trained under another mel
 configuration; `inference --acoustic-checkpoint` and `serve
---acoustic-checkpoint` load them.  Training from a corpus (--metadata)
-needs the dataset loader, which this package does not have yet.
+--acoustic-checkpoint` load them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import itertools
 
+from .data.prefetch import add_prefetch_flags
 from .training.optim import add_stage_flags, stage_overrides
 
 
@@ -35,8 +44,11 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--log-dir", type=str, default=None)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--steps", type=int, default=200000,
+                   help="steps to train from --metadata")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train N steps on synthetic batches (no corpus)")
+    add_prefetch_flags(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save-precision", choices=["f32", "bf16"], default="f32",
                    help="bf16 stores the optimizer's moments in bf16; the model and its "
@@ -66,7 +78,8 @@ def main(argv=None):
     import torch
 
     from .config import default_config, load_config, validate_config
-    from .data.dataset import batch_to_device, synthetic_batch
+    from .data.dataset import TTSDataset, batch_to_device, epochs, synthetic_batch
+    from .data.prefetch import Prefetcher, want_prefetch
     from .kernels import resolve_device
     from .training.acoustic_trainer import init_acoustic_state, make_acoustic_step
     from .training.checkpoint import CheckpointManager
@@ -75,12 +88,8 @@ def main(argv=None):
     from .weights import random_acoustic_model
 
     args = parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit(
-            "--metadata: training from a corpus needs the dataset loader (TTSDataset), which "
-            "this package does not have yet; use --synthetic N"
-            if args.metadata else "--synthetic N is required"
-        )
+    if not (args.synthetic or args.metadata):
+        raise SystemExit("--metadata or --synthetic N is required")
     device = resolve_device(args.device)
     cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
            else default_config())
@@ -97,15 +106,26 @@ def main(argv=None):
         ckpt.restore(state)
         print(f"[train_acoustic] resumed from step {state.step}")
     step_fn = make_acoustic_step(cfg)
-    total_steps = args.synthetic
+    if args.synthetic:
+        source = (synthetic_batch(cfg, batch_size, tph=16, tfrm=64, seed=args.seed + i)
+                  for i in itertools.count(state.step))
+        total_steps = args.synthetic
+    else:
+        ds = TTSDataset(args.metadata, cfg, device=device)
+        source = epochs(lambda n: ds.batches(batch_size, seed=args.seed + n))
+        total_steps = args.steps
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[train_acoustic] on {device}, batch {batch_size} x 16 phonemes x 64 frames, "
-          f"{n_params} parameters, {'bf16' if tr.mixed_precision else 'f32'}")
+    print(f"[train_acoustic] on {device}, batch {batch_size}, {n_params} parameters, "
+          f"{'bf16' if tr.mixed_precision else 'f32'}")
 
     writer = MetricsWriter(args.log_dir or cfg.paths.log_dir, "acoustic",
                            tensorboard=args.tensorboard)
     rng = torch.Generator().manual_seed(args.seed + 1)
     save = dict(precision=args.save_precision, background=not args.sync_save)
+    # collation and the copy to the device, on a background thread if asked
+    to_device = functools.partial(batch_to_device, device=device)
+    batches = (Prefetcher(source, transfer=to_device) if want_prefetch(args.prefetch)
+               else map(to_device, source))
     # SIGTERM/SIGINT -> finish the step, save, exit resumable; non-finite
     # logged metrics -> emergency save, exit non-zero
     shutdown = GracefulShutdown()
@@ -114,8 +134,12 @@ def main(argv=None):
         for i in range(start_step, total_steps):
             if shutdown.requested:
                 break
-            batch = synthetic_batch(cfg, batch_size, tph=16, tfrm=64, seed=args.seed + i)
-            metrics = step_fn(state, batch_to_device(batch, device), rng)
+            batch = next(batches)
+            if i == start_step:
+                b, tph = batch["ph_ids"].shape
+                print(f"[train_acoustic] first batch: {b} x {tph} phonemes x "
+                      f"{batch['mel_gt'].shape[1]} frames")
+            metrics = step_fn(state, batch, rng)
             last_step = i + 1
             if (i + 1) % tr.log_interval == 0 or i == start_step:
                 host = writer.write(i + 1, metrics)
@@ -132,6 +156,8 @@ def main(argv=None):
         raise SystemExit(f"[train_acoustic] DIVERGED: {e}; state saved at step {last_step} "
                          f"in {ckpt_dir} for forensics") from e
     finally:
+        if isinstance(batches, Prefetcher):
+            batches.close()
         shutdown.restore()
         writer.close()
     err = ckpt.drain()

@@ -1,16 +1,19 @@
 """Train the HiFi-GAN vocoder.
 
-  python -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20 \
-      [--loss-mode adv_mel_fm] [--batch-size 16] [--segment-frames 32] \
-      [--checkpoint-dir checkpoints/vocoder] [--resume] [--save-precision bf16] \
-      [--device cpu]
+  python -m sambert_hifigan_tpu_torch.train_vocoder --metadata data/train/metadata.csv \
+      [--loss-mode adv_mel_fm] [--steps 100000] [--batch-size 16] [--segment-frames 32] \
+      [--checkpoint-dir checkpoints/vocoder] [--resume] [--prefetch {auto,on,off}] \
+      [--save-precision bf16] [--device cpu]
+  python -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20    # no corpus
 
-Runs on the CUDA card unless --device cpu is given.  --synthetic N trains N
-steps on random (mel, waveform) pairs made from --seed; the weights are
-random from --seed too.  Checkpoints carry the mel fingerprint: --resume
-refuses one trained under another mel configuration.  Training from a
-corpus (--metadata) needs the dataset loader, which this package does not
-have yet.
+Runs on the CUDA card unless --device cpu is given.  --metadata trains
+--steps steps on random (mel, waveform) crops of the corpus, in shuffled
+epochs (TTSDataset: features extracted on the training device and cached).
+--synthetic N trains N steps on random pairs made from --seed; the weights
+are random from --seed too.  --prefetch on crops the next batches and
+copies them to the device on a background thread (data/prefetch.py).
+Checkpoints carry the mel fingerprint: --resume refuses one trained under
+another mel configuration.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import dataclasses
 
 import numpy as np
 
+from .data.prefetch import add_prefetch_flags
 from .training.optim import add_stage_flags, stage_overrides
 
 
@@ -43,8 +47,11 @@ def parse_args(argv=None):
                    default=None,
                    help="update D every k-th step (default 1)")
     add_stage_flags(p)
+    p.add_argument("--steps", type=int, default=100000,
+                   help="steps to train from --metadata")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train N steps on synthetic pairs (no corpus)")
+    add_prefetch_flags(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tensorboard", action="store_true",
                    help="mirror scalars into TensorBoard event files")
@@ -76,6 +83,8 @@ def main(argv=None):
     import torch
 
     from .config import default_config, load_config, validate_config
+    from .data.dataset import TTSDataset, epochs, to_device, vocoder_batches_from_dataset
+    from .data.prefetch import Prefetcher, want_prefetch
     from .kernels import resolve_device
     from .training.checkpoint import CheckpointManager
     from .training.metrics import MetricsWriter
@@ -83,12 +92,8 @@ def main(argv=None):
     from .training.vocoder_trainer import init_vocoder_state, make_vocoder_step
 
     args = parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit(
-            "--metadata: training from a corpus needs the dataset loader (TTSDataset), which "
-            "this package does not have yet; use --synthetic N"
-            if args.metadata else "--synthetic N is required"
-        )
+    if not (args.synthetic or args.metadata):
+        raise SystemExit("--metadata or --synthetic N is required")
     device = resolve_device(args.device)
     cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
            else default_config())
@@ -104,9 +109,15 @@ def main(argv=None):
         ckpt.restore(state)
         print(f"[train_vocoder] resumed from step {state.step}")
     step_fn = make_vocoder_step(cfg, loss_mode=loss_mode)
-    batches = synthetic_pairs(batch_size, args.segment_frames, cfg.audio.hop_length,
-                              cfg.audio.n_mels, args.seed)
-    total_steps = args.synthetic
+    if args.synthetic:
+        source = synthetic_pairs(batch_size, args.segment_frames, cfg.audio.hop_length,
+                                 cfg.audio.n_mels, args.seed)
+        total_steps = args.synthetic
+    else:
+        ds = TTSDataset(args.metadata, cfg, device=device)
+        source = epochs(lambda n: vocoder_batches_from_dataset(
+            ds, batch_size, args.segment_frames, seed=args.seed + n))
+        total_steps = args.steps
     n_params = sum(p.numel() for p in state.model.generator.parameters())
     print(f"[train_vocoder] {loss_mode} on {device}, batch {batch_size} x "
           f"{args.segment_frames} frames, generator {n_params} parameters")
@@ -116,9 +127,12 @@ def main(argv=None):
     log_interval = cfg.training.vocoder.log_interval
     save_interval = cfg.training.vocoder.save_interval
 
-    def put(a):
-        return torch.from_numpy(a).to(device, non_blocking=True)
+    def put(pair):
+        return tuple(to_device(a, device) for a in pair)
 
+    # cropping and the copy to the device, on a background thread if asked
+    batches = (Prefetcher(source, transfer=put) if want_prefetch(args.prefetch)
+               else map(put, source))
     # SIGTERM/SIGINT -> finish the step, save, exit resumable; non-finite
     # logged metrics -> emergency save, exit non-zero
     shutdown = GracefulShutdown()
@@ -128,7 +142,7 @@ def main(argv=None):
             if shutdown.requested:
                 break
             mel, wav = next(batches)
-            metrics = step_fn(state, put(mel), put(wav))
+            metrics = step_fn(state, mel, wav)
             last_step = i + 1
             if (i + 1) % log_interval == 0 or i == start_step:
                 host = writer.write(i + 1, metrics)
@@ -142,6 +156,8 @@ def main(argv=None):
         raise SystemExit(f"[train_vocoder] DIVERGED: {e}; state saved at step {last_step} "
                          f"in {ckpt_dir} for forensics") from e
     finally:
+        if isinstance(batches, Prefetcher):
+            batches.close()
         shutdown.restore()
         writer.close()
     if ckpt.latest_step() != last_step:

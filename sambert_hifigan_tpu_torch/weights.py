@@ -181,6 +181,18 @@ def vocoder_state_dicts_from_flax(params, spectral=None) -> StateDict:
     return sd
 
 
+def aligner_state_dict_from_flax(params) -> StateDict:
+    """CTCAlignerNet flax params -> the port's state_dict."""
+    p = _unwrap(params)
+    sd: StateDict = {}
+    _conv(sd, "conv_in", p["conv_in"])
+    for i, cp in _layers(p, "conv_"):
+        _conv(sd, f"convs.{i}", cp)
+        _norm(sd, f"norms.{i}", p[f"norm_{i}"])
+    _linear(sd, "proj", p["proj"])
+    return sd
+
+
 def generator_state_dict_from_flax(params) -> StateDict:
     """HiFiGANGenerator flax params -> the port's state_dict."""
     p = _unwrap(params)

@@ -293,7 +293,8 @@ def test_train_acoustic_then_inference(tmp_path, monkeypatch, capsys):
     --acoustic-checkpoint loads it (the EMA copy) and writes a wav whose
     length is a whole number of frames; a run under another mel config
     refuses to resume; with no card and no --device cpu it raises;
-    --metadata says the loader is missing."""
+    --metadata with no card raises too, and
+    neither --metadata nor --synthetic is refused."""
     model_cfg = _tiny_model_config(tmp_path / "model.yaml")
     ck = str(tmp_path / "ck")
     common = ["--model-config", model_cfg, "--batch-size", "2", "--checkpoint-dir", ck,
@@ -336,5 +337,7 @@ def test_train_acoustic_then_inference(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_acoustic.main(["--synthetic", "1", *common])
-    with pytest.raises(SystemExit, match="dataset loader"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         train_acoustic.main(["--metadata", "data/train/metadata.csv", *common])
+    with pytest.raises(SystemExit, match="--metadata or --synthetic"):
+        train_acoustic.main(common)

@@ -330,7 +330,8 @@ def test_checkpoint_round_trip(tmp_path, precision):
 def test_train_vocoder_entry_point(tmp_path, monkeypatch, capsys):
     """Trains 2 steps on the CPU and saves; --resume continues from step 2
     to 3; a run under another mel config refuses to resume; with no card
-    and no --device cpu it raises; --metadata says the loader is missing."""
+    and no --device cpu it raises; --metadata with no card raises too, and
+    neither --metadata nor --synthetic is refused."""
     model_cfg = _tiny_model_config(tmp_path / "model.yaml")
     common = ["--model-config", model_cfg, "--batch-size", "2", "--segment-frames", "8",
               "--checkpoint-dir", str(tmp_path / "ck"), "--log-dir", str(tmp_path / "logs")]
@@ -351,8 +352,10 @@ def test_train_vocoder_entry_point(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_vocoder.main(["--synthetic", "1", *common])
-    with pytest.raises(SystemExit, match="dataset loader"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         train_vocoder.main(["--metadata", "data/train/metadata.csv", *common])
+    with pytest.raises(SystemExit, match="--metadata or --synthetic"):
+        train_vocoder.main(common)
 
 
 def test_optimizer_runs_after_scripts_shadow_profile():

@@ -124,3 +124,35 @@ def test_options_survive_a_checkpoint(tmp_path, save):
             assert torch.equal(x, y)
         for x, y in zip(state.g_ema.parameters(), fresh.g_ema.parameters()):
             assert torch.equal(x, y)
+
+
+def test_train_vocoder_from_metadata(tmp_path):
+    """`train_vocoder --metadata` on a toy corpus (6 utterances), the tiny
+    vocoder on the CPU, batch 2 of 8-frame crops: trains 2 steps to a
+    checkpoint, and --prefetch on and off log the same metrics and train
+    the same weights, bit for bit."""
+    import json
+
+    from sambert_hifigan_tpu_torch import train_vocoder
+    from sambert_hifigan_tpu_torch.config import load_config
+    from sambert_hifigan_tpu_torch.make_toy_dataset import make_toy_dataset
+    from sambert_hifigan_tpu_torch.training.checkpoint import CheckpointManager
+    from tests.test_torch_vocoder_train import _tiny_model_config
+
+    meta = str(make_toy_dataset(tmp_path / "toy", n=6, seed=4, verbose=False))
+    model_cfg = _tiny_model_config(tmp_path / "model.yaml")
+    cfg = load_config(None, model_cfg)
+    logs, states = {}, {}
+    for mode in ("on", "off"):
+        states[mode] = train_vocoder.main([
+            "--metadata", meta, "--steps", "2", "--device", "cpu", "--model-config", model_cfg,
+            "--batch-size", "2", "--segment-frames", "8", "--prefetch", mode,
+            "--checkpoint-dir", str(tmp_path / mode), "--log-dir", str(tmp_path / f"logs_{mode}")])
+        assert states[mode].step == 2
+        assert CheckpointManager(tmp_path / mode, cfg.audio).all_steps() == [2]
+        lines = (tmp_path / f"logs_{mode}" / "vocoder_metrics.jsonl").read_text().splitlines()
+        logs[mode] = [{k: v for k, v in json.loads(line).items() if k != "wall_time_s"}
+                      for line in lines]
+    assert len(logs["on"]) == 1 and logs["on"] == logs["off"]  # step 1 is logged
+    for k, v in states["on"].model.state_dict().items():
+        assert torch.equal(v, states["off"].model.state_dict()[k]), k
