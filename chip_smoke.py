@@ -36,8 +36,14 @@ aligner steps), `train_acoustic --metadata` at full width (12 steps with
 --prefetch on, then off; a profiled step and the device's idle share) and
 `train_vocoder --metadata` (6 steps), then `build_pipeline` from the two
 checkpoints: `synthesize_batch` of 4 corpus texts through K1 and K2, and
-mel-MAE and MCD of a copy synthesis.  Any failed phase raises and the
-script exits non-zero.  It imports nothing of JAX.
+mel-MAE and MCD of a copy synthesis.  Phase 10 trains across processes:
+both trainers under `torch.distributed.run --nproc-per-node 1` (nccl), then
+`multiprocess_dp` with 2 ranks on the one card (gloo) at full width, the
+acoustic model (B = 16, 4 steps) and the vocoder (B = 16, 3 steps) each
+against a single-process control on the card with bit-equal replicas, then
+the torchrun checkpoints through K1 and K2 and the offline tools
+(`copy_synth`, `eval_vocoder_waveform`, `eval_teacher_forced`).  Any failed
+phase raises and the script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
 kernel's launches, error and times, and the card's name and power limit as
@@ -1459,6 +1465,164 @@ def phase_data(pipe, dev):
     return row
 
 
+# ---- phase 10: data-parallel training across processes ----------------------
+
+DP_RANKS, DP_AC_STEPS, DP_VOC_STEPS, DP_B = 2, 4, 3, 16
+DP_TOY_UTTS, DP_TIMEOUT_S = 4, 300
+# a hung phase fails; measured 76-87 s on one H100 (PERF.md, PR 9), most of
+# it the start of six processes (two torchrun agents and their workers,
+# two gloo ranks) and the full-width models' first steps
+DP_PHASE_LIMIT_S = 120.0
+
+
+def phase_dp(pipe, dev):
+    """Data-parallel training across processes on the card.  The NCCL leg:
+    `train_acoustic --synthetic 4` and `train_vocoder --synthetic 4` under
+    `torch.distributed.run --nproc-per-node 1` (world size 1, nccl), side
+    by side.  The gloo leg: `multiprocess_dp` with 2 ranks on cuda:0 (nccl
+    refuses two ranks on one card), at the default config's full width
+    (`multiprocess_dp.comparable`: dropout 0, f32): the acoustic model at B = 16 global, synthetic_batch(tph
+    64, tfrm 512), 4 steps, and the vocoder in adv_mel_fm at B = 16 x 32
+    frames, 3 steps, each against a single-process control on the card and
+    rank 0's lockstep, replicas bit-equal; step ms, the reduction's ms and
+    each rank's peak memory.  Then the NCCL leg's checkpoints: synthesize_
+    batch through K1 and K2 (`build_pipeline`), and on a fresh toy corpus
+    `copy_synth` (K2), `eval_vocoder_waveform` and `eval_teacher_forced`."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sambert_hifigan_tpu_torch import multiprocess_dp as mp
+    from sambert_hifigan_tpu_torch.copy_synth import copy_synthesize
+    from sambert_hifigan_tpu_torch.eval_teacher_forced import teacher_forced_mel_l1
+    from sambert_hifigan_tpu_torch.eval_vocoder_waveform import score_systems
+    from sambert_hifigan_tpu_torch.make_toy_dataset import make_toy_dataset
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import build_pipeline
+
+    t_phase = time.perf_counter()
+    cfg = pipe.cfg
+    row = {}
+    k1.launches = 0
+    k2.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the NCCL leg at world size 1, both trainers side by side
+        t0 = time.perf_counter()
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc-per-node", "1", "-m"]
+        common = ["--synthetic", "4", "--log-dir", str(tmp / "logs")]
+        legs = mp.run_procs([
+            [*torchrun, "sambert_hifigan_tpu_torch.train_acoustic", *common,
+             "--checkpoint-dir", str(tmp / "ac"), "--sync-save"],
+            [*torchrun, "sambert_hifigan_tpu_torch.train_vocoder", *common,
+             "--checkpoint-dir", str(tmp / "voc"), "--save-precision", "bf16"]],
+            [tmp / "ac.log", tmp / "voc.log"], DP_TIMEOUT_S)
+        row["nccl"] = dict(wall_s=time.perf_counter() - t0, rcs=[rc for rc, _ in legs],
+                           backend_lines=[line for _, out in legs for line in out.splitlines()
+                                          if line.startswith("[dist]")],
+                           checkpoints=[sorted(p.name for p in (tmp / d).glob("step_*"))
+                                        for d in ("ac", "voc")])
+        log("[dp] torchrun --nproc-per-node 1 (nccl)", json.dumps(row["nccl"]))
+        for rc, out in legs:
+            if rc != 0 or "backend nccl" not in out or "done at step 4" not in out:
+                raise AssertionError(f"torchrun trainer (rc {rc}):\n{out[-3000:]}")
+        if row["nccl"]["checkpoints"] != [["step_000000004"]] * 2:
+            raise AssertionError(f"torchrun checkpoints: {row['nccl']['checkpoints']}")
+
+        # the gloo leg: 2 ranks on cuda:0 against a control in this process,
+        # every step of both held to the control (f32 at full width on the
+        # card: the vocoder's trajectories do not part here as the tiny
+        # config's do on the CPU, multiprocess_dp.gated_steps)
+        dcfg = mp.comparable(cfg)
+        runs = [mp.make_run("acoustic", dcfg, DP_AC_STEPS, DP_B, tph=64, tfrm=512),
+                mp.make_run("vocoder", dcfg, DP_VOC_STEPS, DP_B, segment_frames=32,
+                            loss_mode="adv_mel_fm", control_steps=DP_VOC_STEPS)]
+        t0 = time.perf_counter()
+        control = mp.run_plan(runs, dev)
+        control_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = mp.launch(runs, DP_RANKS, "cuda", tmp / "dp", timeout=DP_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        bad, worst = mp.compare(runs, control, ranks)
+        row["gloo"] = {"control_s": control_s, "launch_s": launch_s}
+        log("[dp] multiprocess_dp wall", json.dumps(row["gloo"]))
+        for i, run in enumerate(runs):
+            res = [r[i] for r in ranks]
+            row["gloo"][run["model"]] = dict(
+                ranks=DP_RANKS, global_batch=DP_B, steps=run["steps"],
+                step_ms=[r["step_ms"] for r in res],
+                median_step_ms=[median(r["step_ms"][1:]) for r in res],
+                control_step_ms=control[i]["step_ms"],
+                control_median_step_ms=median(control[i]["step_ms"][1:]),
+                reduce_ms=[r["reduce_ms"] for r in res],
+                median_reduce_ms=[median(r["reduce_ms"][1:]) for r in res],
+                reduce_mb_per_step=res[0]["reduce_mb_per_step"],
+                peak_mib=[r["peak_mib"] for r in res], control_peak_mib=control[i]["peak_mib"],
+                control_departure=worst[i], control_gated_steps=mp.gated_steps(run),
+                lockstep_departure=[max(mp.departures(d, lk).items(), key=lambda kv: kv[1])
+                                    for d, lk in zip(res[0]["history"], res[0]["lockstep"])],
+                replicas_equal=len({r["digest"] for r in res}) == 1,
+                final_loss=res[0]["history"][-1].get("total_loss",
+                                                     res[0]["history"][-1].get("gen_loss")))
+            log(f"[dp] multiprocess_dp {run['model']}, {DP_RANKS} ranks on {dev} (gloo)",
+                json.dumps(row["gloo"][run["model"]]))
+        if bad:
+            raise AssertionError("multiprocess_dp against its controls:\n" + "\n".join(bad))
+
+        # the NCCL leg's checkpoints through the kernels
+        tts = build_pipeline(cfg, device=dev, acoustic_checkpoint=str(tmp / "ac"),
+                             vocoder_checkpoint=str(tmp / "voc"))
+        texts = TEXTS[:2]
+        k1_0, k2_0 = k1.launches, k2.launches
+        wavs = tts.synthesize_batch(texts)
+        torch.cuda.synchronize()
+        synth = {"ar_decode": k1.launches - k1_0, "mrf": k2.launches - k2_0}
+        totals, want = expected_samples(tts, texts)
+        row["synthesis"] = dict(texts=texts, totals=totals, wav_samples=[len(w) for w in wavs],
+                                want=want, launches=synth)
+        log("[dp] synthesis from the torchrun checkpoints", json.dumps(row["synthesis"]))
+        for wav, n in zip(wavs, want):
+            if wav.shape != (n,) or not np.isfinite(wav).all():
+                raise AssertionError(f"synthesize_batch gave {wav.shape}, want {n}")
+        if synth["ar_decode"] < 1 or synth["mrf"] != len(tts.mrf_weights) * synth["ar_decode"]:
+            raise AssertionError(f"kernels on the torchrun checkpoints' path: {synth}")
+
+        # the offline tools on a fresh toy corpus with the same checkpoints
+        meta = make_toy_dataset(tmp / "toy", n=DP_TOY_UTTS, seed=DATA_SEED, verbose=False)
+        k2_0 = k2.launches
+        step, which, written = copy_synthesize(cfg, str(meta), str(tmp / "voc"),
+                                               str(tmp / "copy"), device=dev)
+        copy_k2 = k2.launches - k2_0
+        scores = score_systems(cfg, tmp / "toy" / "wavs", [("dp", tmp / "copy")], device=dev)
+        tf_step, tf_which, tf_vals = teacher_forced_mel_l1(cfg, str(meta), str(tmp / "ac"),
+                                                            device=dev)
+        row["tools"] = dict(copy_synth=dict(step=step, params=which, wavs=len(written),
+                                            k2_launches=copy_k2),
+                            eval_vocoder_waveform=scores["dp"],
+                            eval_teacher_forced=dict(step=tf_step, params=tf_which,
+                                                     mel_l1=[v for _, v in tf_vals]))
+        log("[dp] copy_synth, eval_vocoder_waveform, eval_teacher_forced",
+            json.dumps(row["tools"]))
+        s = scores["dp"]
+        if (len(written) != DP_TOY_UTTS or copy_k2 != len(tts.mrf_weights) * DP_TOY_UTTS
+                or s["utterances"] != DP_TOY_UTTS
+                or not all(np.isfinite(s[k]) for k in ("mel_mae", "mcd", "stft_mae"))
+                or len(tf_vals) != DP_TOY_UTTS or not np.isfinite([v for _, v in tf_vals]).all()):
+            raise AssertionError(f"offline tools: {row['tools']}")
+    row["launches"] = {"ar_decode": k1.launches, "mrf": k2.launches}
+    row["phase_s"] = time.perf_counter() - t_phase
+    legs_s = row["nccl"]["wall_s"] + row["gloo"]["control_s"] + row["gloo"]["launch_s"]
+    log(f"[dp] phase 10 took {row['phase_s']:.1f} s: torchrun {row['nccl']['wall_s']:.1f}, "
+        f"control {row['gloo']['control_s']:.1f}, ranks {row['gloo']['launch_s']:.1f}, "
+        f"synthesis and tools {row['phase_s'] - legs_s:.1f}")
+    if row["phase_s"] > DP_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 10 took {row['phase_s']:.1f} s (limit {DP_PHASE_LIMIT_S})")
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -1512,6 +1676,7 @@ def main() -> int:
     train_row = phase_train(pipe, dev)
     acoustic_row = phase_acoustic_train(pipe, dev)
     data_row = phase_data(pipe, dev)
+    dp_row = phase_dp(pipe, dev)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -1523,6 +1688,7 @@ def main() -> int:
          "launches_stream": stream_launch_counts["ar_decode"], "launches_train": 0,
          "launches_acoustic_train": acoustic_row["trained"]["launches"]["ar_decode"],
          "launches_data_train": data_row["launches"]["ar_decode"],
+         "launches_dp_train": dp_row["launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -1534,6 +1700,7 @@ def main() -> int:
          "launches_train": train_row["vocode"]["k2_launches"],
          "launches_acoustic_train": acoustic_row["trained"]["launches"]["mrf"],
          "launches_data_train": data_row["launches"]["mrf"],
+         "launches_dp_train": dp_row["launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -1549,7 +1716,11 @@ def main() -> int:
         "(its 15 full-width train steps and the small card-vs-CPU step, none; then the trained decoder once through K1 and one "
         "synthesize_batch of the trained model); launches_data_train: phase 9's (the "
         "aligner and every --metadata train step, none; then one synthesize_batch of 4 "
-        "corpus texts from the two checkpoints and one copy-synthesis vocode)")
+        "corpus texts from the two checkpoints and one copy-synthesis vocode); "
+        "launches_dp_train: phase 10's (the torchrun and multiprocess_dp train steps, none, "
+        "and those run in processes of their own; then one synthesize_batch of 2 texts from "
+        "the torchrun checkpoints and the text_to_mel that gives their lengths, and "
+        "copy_synth of a 4-utterance toy corpus)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

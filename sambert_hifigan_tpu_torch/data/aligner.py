@@ -13,8 +13,11 @@ Against optax: `F.ctc_loss` takes log-probabilities [T, B, C] and lengths
 where `optax.ctc_loss` takes logits and paddings (1.0 = padded) and applies
 the log-softmax itself; the port applies it.  An alignment that cannot fit
 (more labels, with the blanks that repeats need, than frames) costs
-optax a large finite value and torch `inf`; `zero_infinity=True` drops it
-from the loss and its gradient instead.  optax.adamw's weight decay
+`F.ctc_loss` `inf`, and optax a large finite value from its stand-in for
+log(0) (log_epsilon = -1e5), whose gradient then leads the batch.  Such
+rows, found on the host from the lengths, take `optax_ctc_loss`, a plain
+torch copy of optax's forward recursion; the others keep `F.ctc_loss`.
+optax.adamw's weight decay
 defaults to 1e-4 (torch's AdamW to 1e-2): it is passed.  The CUDA CTC
 backward accumulates with atomics, so card and CPU agree within rounding,
 not bit for bit.  The Viterbi decode is host numpy: offline preprocessing,
@@ -92,15 +95,74 @@ def _pad_batch(
     return mel_pad, lab_pad, mel_padding, lab_padding
 
 
+def infeasible_rows(labels: np.ndarray, label_len: np.ndarray,
+                    frames: np.ndarray) -> np.ndarray:
+    """[B] bool: rows whose labels, with a blank between each adjacent
+    repeat, need more frames than they have."""
+    need = np.array([n + int((lab[:n][1:] == lab[:n][:-1]).sum())
+                     for lab, n in zip(labels, label_len)])
+    return need > frames
+
+
+def optax_ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+                   logit_paddings: torch.Tensor, label_paddings: torch.Tensor,
+                   blank: int, log_epsilon: float = -1e5) -> torch.Tensor:
+    """optax.ctc_loss's forward recursion [B] on log-probabilities [B, T, K]
+    (its log-softmax applied), labels [B, N] and paddings (1.0 = padded),
+    with the same stand-in for log(0).  Differentiable; one step per frame."""
+    b, t_len, _ = log_probs.shape
+    n = labels.shape[1]
+    label_len = n - label_paddings.sum(dim=1).long()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))  # [B, N]
+    lp_phi = log_probs[:, :, blank]  # [B, T]
+    lp_emit = torch.gather(log_probs, 2, labels.long()[:, None, :].expand(b, t_len, n))
+    dev = log_probs.device
+    phi = torch.full((b, n + 1), log_epsilon, device=dev)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), log_epsilon, device=dev)
+
+    def update_phi(phi, added):  # phi[:, 1:] += added, in log space
+        return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)], dim=-1)
+
+    for t in range(t_len):
+        prev_phi = update_phi(phi, emit + log_epsilon * repeat)  # emit -> phi
+        e, ph = lp_emit[:, t], lp_phi[:, t:t + 1]
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + e, emit + e)
+        next_phi = update_phi(prev_phi + ph, emit + ph + log_epsilon * (1.0 - repeat))
+        pad = logit_paddings[:, t:t + 1]
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * phi + (1.0 - pad) * next_phi
+    last = update_phi(phi, emit)
+    return -torch.gather(last, 1, label_len[:, None])[:, 0]
+
+
 def ctc_losses(net: CTCAlignerNet, mel: torch.Tensor, labels: torch.Tensor,
                mel_padding: torch.Tensor, label_padding: torch.Tensor,
                vocab_size: int) -> torch.Tensor:
-    """Per-example CTC negative log-likelihood [B] of a padded batch."""
-    log_probs = F.log_softmax(net(mel).float(), dim=-1).transpose(0, 1)  # [T, B, C]
+    """Per-example CTC negative log-likelihood [B] of a padded batch, as
+    optax.ctc_loss gives it: `F.ctc_loss` on the rows that can align,
+    `optax_ctc_loss` on those that cannot."""
+    log_probs = F.log_softmax(net(mel).float(), dim=-1)  # [B, T, C]
     mel_len = (mel_padding == 0).sum(dim=-1)
     lab_len = (label_padding == 0).sum(dim=-1)
-    return F.ctc_loss(log_probs, labels.long(), mel_len, lab_len, blank=blank_id(vocab_size),
-                      reduction="none", zero_infinity=True)
+    blank = blank_id(vocab_size)
+    bad = infeasible_rows(labels.cpu().numpy(), lab_len.cpu().numpy(), mel_len.cpu().numpy())
+    if not bad.any():
+        return F.ctc_loss(log_probs.transpose(0, 1), labels.long(), mel_len, lab_len,
+                          blank=blank, reduction="none")
+    dev = log_probs.device
+    rows = {flag: torch.as_tensor(np.flatnonzero(bad == flag), device=dev)
+            for flag in (False, True)}
+    out = torch.zeros(len(bad), device=dev).index_copy(
+        0, rows[True], optax_ctc_loss(log_probs[rows[True]], labels[rows[True]],
+                                      mel_padding[rows[True]], label_padding[rows[True]],
+                                      blank))
+    if len(rows[False]):
+        g = rows[False]
+        out = out.index_copy(0, g, F.ctc_loss(log_probs[g].transpose(0, 1), labels[g].long(),
+                                              mel_len[g], lab_len[g], blank=blank,
+                                              reduction="none"))
+    return out
 
 
 def aligner_loss(net, mel, labels, mel_padding, label_padding, vocab_size) -> torch.Tensor:

@@ -8,7 +8,10 @@ config; masks carry the true lengths.  Features (log-mel, F0, energy,
 durations) are extracted with the same ops the losses use (the
 mel-consistency invariant) on the dataset's device, returned as numpy, and
 cached as .npz under the same key and field names as the JAX package's, so
-a corpus preprocessed by either package loads in the other.
+a corpus preprocessed by either package loads in the other.  A cache file
+is written whole or not at all (`save_npz_atomic`): ranks of a process
+group that extract the same utterance at once each write their own
+temporary file and rename it into place.
 
 Entry points:
   TTSDataset       — files on disk, feature cache, bucketed batch iterator
@@ -34,6 +37,17 @@ from ..ops.mel import log_mel_spectrogram, resample
 from ..text.frontend import FrontEnd, pick_bucket
 from .audio import load_wav
 from .features import extract_energy, extract_f0, uniform_durations
+
+
+def save_npz_atomic(path: Path, arrays: Dict[str, np.ndarray]) -> None:
+    """np.savez to a temporary file beside `path` (named `<key>.<pid>.tmp.npz`:
+    savez appends .npz to a name without it), then os.replace onto `path`."""
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.npz")
+    try:
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 @dataclass
@@ -186,7 +200,7 @@ class TTSDataset:
             "wav": wav_mono.astype(np.float32),
         }
         cache.parent.mkdir(parents=True, exist_ok=True)
-        np.savez(cache, **feats)
+        save_npz_atomic(cache, feats)
         self._memoize(utt, feats)
         return feats
 
@@ -222,7 +236,7 @@ class TTSDataset:
                     f"(sum {int(dur.sum())}, {f['mel'].shape[0]} frames, each >= 1)"
                 )
             f = dict(f, dur=dur.astype(np.int32))
-            np.savez(self._cache_key(utt), **f)
+            save_npz_atomic(self._cache_key(utt), f)
             self._memoize(utt, f, replace=True)
             if verbose:
                 print(f"[align] {utt.wav_path}: dur={dur.tolist()}")

@@ -18,6 +18,9 @@ copy to the device onto one background thread with a bounded queue:
   the step enqueued after `next()` returns runs after the copy has landed,
   with no explicit synchronisation.  The pinned host buffer is held by
   PyTorch's host allocator until the copy has finished.
+* In a process group the trainers' `transfer` first keeps the rank's rows
+  of the global batch (`parallel.mesh.shard_batch`), then pins and
+  copies only those.
 * The queue is bounded (default depth 2): prefetch stays one or two
   batches ahead and never grows host memory.
 * Exceptions of the source iterator or of `transfer` surface at the

@@ -6,6 +6,8 @@
       [--scheduled-sampling 0.2] [--lr-schedule warmup_cosine --warmup-steps 100 \
       --lr-total-steps 20] [--ema-decay 0.999] [--accumulate-steps 2] [--seed 0] [--device cpu]
   python -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20    # no corpus
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20      # 2 ranks
 
 Runs on the CUDA card unless --device cpu is given.  --metadata trains
 --steps steps on the corpus, in shuffled epochs of batches padded to the
@@ -21,16 +23,23 @@ are written by a background thread from a copy made on the device
 fingerprint: --resume refuses one trained under another mel
 configuration; `inference --acoustic-checkpoint` and `serve
 --acoustic-checkpoint` load them.
+
+Under torchrun each rank joins the process group (parallel/mesh.py) on
+cuda:(LOCAL_RANK % cards), builds the same global batch (--batch-size,
+rounded down to a multiple of the world size), keeps its rows, and reduces
+the step explicitly; rank 0 writes checkpoints and metrics.  A SIGTERM to
+any rank stops every rank at the same step.  Without torchrun it runs as
+one process.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import itertools
 
 from .data.prefetch import add_prefetch_flags
+from .parallel.mesh import add_dist_flags
 from .training.optim import add_stage_flags, stage_overrides
 
 
@@ -65,6 +74,7 @@ def parse_args(argv=None):
     add_stage_flags(p)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' trains on the CPU)")
+    add_dist_flags(p)
     return p.parse_args(argv)
 
 
@@ -75,28 +85,43 @@ def stage_config(cfg, args):
 
 
 def main(argv=None):
+    from .kernels import resolve_device
+    from .parallel import mesh
+
+    args = parse_args(argv)
+    if not (args.synthetic or args.metadata):
+        raise SystemExit("--metadata or --synthetic N is required")
+    device, own_group = mesh.setup(resolve_device(args.device), args.dist_init_method)
+    try:
+        state = _train(args, device)
+    except BaseException:
+        if own_group:
+            mesh.destroy(wait=False)
+        raise
+    if own_group:
+        mesh.destroy()
+    return state
+
+
+def _train(args, device):
     import torch
 
     from .config import default_config, load_config, validate_config
     from .data.dataset import TTSDataset, batch_to_device, epochs, synthetic_batch
     from .data.prefetch import Prefetcher, want_prefetch
-    from .kernels import resolve_device
+    from .parallel import mesh
     from .training.acoustic_trainer import init_acoustic_state, make_acoustic_step
     from .training.checkpoint import CheckpointManager
     from .training.metrics import MetricsWriter
     from .training.signals import GracefulShutdown, TrainingDiverged, check_finite_metrics
     from .weights import random_acoustic_model
 
-    args = parse_args(argv)
-    if not (args.synthetic or args.metadata):
-        raise SystemExit("--metadata or --synthetic N is required")
-    device = resolve_device(args.device)
     cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
            else default_config())
     cfg = stage_config(cfg, args)
     validate_config(cfg)
     tr = cfg.training.acoustic
-    batch_size = args.batch_size or tr.batch_size
+    batch_size = mesh.round_batch(args.batch_size or tr.batch_size, "train_acoustic")
 
     model = random_acoustic_model(cfg, torch.Generator().manual_seed(args.seed)).to(device)
     state = init_acoustic_state(model, cfg)
@@ -105,6 +130,7 @@ def main(argv=None):
     if args.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
         print(f"[train_acoustic] resumed from step {state.step}")
+    mesh.replicate(state)
     step_fn = make_acoustic_step(cfg)
     if args.synthetic:
         source = (synthetic_batch(cfg, batch_size, tph=16, tfrm=64, seed=args.seed + i)
@@ -116,14 +142,18 @@ def main(argv=None):
         total_steps = args.steps
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[train_acoustic] on {device}, batch {batch_size}, {n_params} parameters, "
-          f"{'bf16' if tr.mixed_precision else 'f32'}")
+          f"{'bf16' if tr.mixed_precision else 'f32'}"
+          + (f", rank {mesh.rank()} of {mesh.world_size()}" if mesh.is_distributed() else ""))
 
     writer = MetricsWriter(args.log_dir or cfg.paths.log_dir, "acoustic",
                            tensorboard=args.tensorboard)
     rng = torch.Generator().manual_seed(args.seed + 1)
     save = dict(precision=args.save_precision, background=not args.sync_save)
-    # collation and the copy to the device, on a background thread if asked
-    to_device = functools.partial(batch_to_device, device=device)
+    # collation, this rank's rows and the copy to the device, on a background
+    # thread if asked
+    def to_device(global_batch):
+        return batch_to_device(mesh.shard_batch(global_batch), device)
+
     batches = (Prefetcher(source, transfer=to_device) if want_prefetch(args.prefetch)
                else map(to_device, source))
     # SIGTERM/SIGINT -> finish the step, save, exit resumable; non-finite
@@ -132,7 +162,7 @@ def main(argv=None):
     start_step = last_step = state.step
     try:
         for i in range(start_step, total_steps):
-            if shutdown.requested:
+            if shutdown.agreed():
                 break
             batch = next(batches)
             if i == start_step:
@@ -143,8 +173,10 @@ def main(argv=None):
             last_step = i + 1
             if (i + 1) % tr.log_interval == 0 or i == start_step:
                 host = writer.write(i + 1, metrics)
-                check_finite_metrics(host, i + 1)
-                print(writer.summary_line(i + 1, host, ["total_loss", "mel_loss", "dur_loss"]))
+                check_finite_metrics(host, i + 1)  # global metrics: every rank agrees
+                if mesh.is_main():
+                    print(writer.summary_line(i + 1, host,
+                                              ["total_loss", "mel_loss", "dur_loss"]))
             if (i + 1) % tr.save_interval == 0:
                 ckpt.save(i + 1, state, **save)
     except TrainingDiverged as e:
@@ -153,6 +185,7 @@ def main(argv=None):
             print(f"[train_acoustic] warning: a background save failed earlier: {err!r}")
         if ckpt.latest_step() != last_step:
             ckpt.save(last_step, state, precision=args.save_precision)
+        ckpt.finish()
         raise SystemExit(f"[train_acoustic] DIVERGED: {e}; state saved at step {last_step} "
                          f"in {ckpt_dir} for forensics") from e
     finally:
@@ -165,6 +198,7 @@ def main(argv=None):
         print(f"[train_acoustic] warning: a background save failed earlier: {err!r}")
     if ckpt.latest_step() != last_step:
         ckpt.save(last_step, state, precision=args.save_precision)
+    ckpt.finish()  # the last save is on disk before any rank goes on
     if shutdown.requested:
         print(f"[train_acoustic] interrupted at step {last_step}; resumable checkpoint in "
               f"{ckpt_dir} (--resume)")

@@ -5,6 +5,8 @@
       [--checkpoint-dir checkpoints/vocoder] [--resume] [--prefetch {auto,on,off}] \
       [--save-precision bf16] [--device cpu]
   python -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20    # no corpus
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20      # 2 ranks
 
 Runs on the CUDA card unless --device cpu is given.  --metadata trains
 --steps steps on random (mel, waveform) crops of the corpus, in shuffled
@@ -14,6 +16,12 @@ are random from --seed too.  --prefetch on crops the next batches and
 copies them to the device on a background thread (data/prefetch.py).
 Checkpoints carry the mel fingerprint: --resume refuses one trained under
 another mel configuration.
+
+Under torchrun each rank joins the process group (parallel/mesh.py) on
+cuda:(LOCAL_RANK % cards), draws the same global pairs (--batch-size,
+rounded down to a multiple of the world size), keeps its rows, and
+averages the gradients over the ranks; rank 0 writes checkpoints and
+metrics.  Without torchrun it runs as one process.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import dataclasses
 import numpy as np
 
 from .data.prefetch import add_prefetch_flags
+from .parallel.mesh import add_dist_flags
 from .training.optim import add_stage_flags, stage_overrides
 
 
@@ -60,6 +69,7 @@ def parse_args(argv=None):
                         "bf16; the generator and its EMA stay f32")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' trains on the CPU)")
+    add_dist_flags(p)
     return p.parse_args(argv)
 
 
@@ -80,27 +90,43 @@ def stage_config(cfg, args):
 
 
 def main(argv=None):
+    from .kernels import resolve_device
+    from .parallel import mesh
+
+    args = parse_args(argv)
+    if not (args.synthetic or args.metadata):
+        raise SystemExit("--metadata or --synthetic N is required")
+    device, own_group = mesh.setup(resolve_device(args.device), args.dist_init_method)
+    try:
+        state = _train(args, device)
+    except BaseException:
+        if own_group:
+            mesh.destroy(wait=False)
+        raise
+    if own_group:
+        mesh.destroy()
+    return state
+
+
+def _train(args, device):
     import torch
 
     from .config import default_config, load_config, validate_config
     from .data.dataset import TTSDataset, epochs, to_device, vocoder_batches_from_dataset
     from .data.prefetch import Prefetcher, want_prefetch
-    from .kernels import resolve_device
+    from .parallel import mesh
     from .training.checkpoint import CheckpointManager
     from .training.metrics import MetricsWriter
     from .training.signals import GracefulShutdown, TrainingDiverged, check_finite_metrics
     from .training.vocoder_trainer import init_vocoder_state, make_vocoder_step
 
-    args = parse_args(argv)
-    if not (args.synthetic or args.metadata):
-        raise SystemExit("--metadata or --synthetic N is required")
-    device = resolve_device(args.device)
     cfg = (load_config(args.config, args.model_config) if args.config or args.model_config
            else default_config())
     cfg = stage_config(cfg, args)
     validate_config(cfg)
     loss_mode = args.loss_mode or cfg.vocoder.loss_mode
-    batch_size = args.batch_size or cfg.training.vocoder.batch_size
+    batch_size = mesh.round_batch(args.batch_size or cfg.training.vocoder.batch_size,
+                                  "train_vocoder")
 
     state = init_vocoder_state(cfg, torch.Generator().manual_seed(args.seed), device)
     ckpt_dir = args.checkpoint_dir or f"{cfg.paths.checkpoint_dir}/vocoder"
@@ -108,6 +134,7 @@ def main(argv=None):
     if args.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
         print(f"[train_vocoder] resumed from step {state.step}")
+    mesh.replicate(state)
     step_fn = make_vocoder_step(cfg, loss_mode=loss_mode)
     if args.synthetic:
         source = synthetic_pairs(batch_size, args.segment_frames, cfg.audio.hop_length,
@@ -120,7 +147,8 @@ def main(argv=None):
         total_steps = args.steps
     n_params = sum(p.numel() for p in state.model.generator.parameters())
     print(f"[train_vocoder] {loss_mode} on {device}, batch {batch_size} x "
-          f"{args.segment_frames} frames, generator {n_params} parameters")
+          f"{args.segment_frames} frames, generator {n_params} parameters"
+          + (f", rank {mesh.rank()} of {mesh.world_size()}" if mesh.is_distributed() else ""))
 
     writer = MetricsWriter(args.log_dir or cfg.paths.log_dir, "vocoder",
                            tensorboard=args.tensorboard)
@@ -128,9 +156,10 @@ def main(argv=None):
     save_interval = cfg.training.vocoder.save_interval
 
     def put(pair):
-        return tuple(to_device(a, device) for a in pair)
+        return tuple(to_device(a, device) for a in mesh.shard_batch(pair))
 
-    # cropping and the copy to the device, on a background thread if asked
+    # cropping, this rank's rows and the copy to the device, on a background
+    # thread if asked
     batches = (Prefetcher(source, transfer=put) if want_prefetch(args.prefetch)
                else map(put, source))
     # SIGTERM/SIGINT -> finish the step, save, exit resumable; non-finite
@@ -139,20 +168,23 @@ def main(argv=None):
     start_step = last_step = state.step
     try:
         for i in range(start_step, total_steps):
-            if shutdown.requested:
+            if shutdown.agreed():
                 break
             mel, wav = next(batches)
             metrics = step_fn(state, mel, wav)
             last_step = i + 1
             if (i + 1) % log_interval == 0 or i == start_step:
                 host = writer.write(i + 1, metrics)
-                check_finite_metrics(host, i + 1)
-                print(writer.summary_line(i + 1, host, ["gen_loss", "gen_mel_loss", "disc_loss"]))
+                check_finite_metrics(host, i + 1)  # global metrics: every rank agrees
+                if mesh.is_main():
+                    print(writer.summary_line(i + 1, host,
+                                              ["gen_loss", "gen_mel_loss", "disc_loss"]))
             if (i + 1) % save_interval == 0:
                 ckpt.save(i + 1, state, precision=args.save_precision)
     except TrainingDiverged as e:
         if ckpt.latest_step() != last_step:
             ckpt.save(last_step, state, precision=args.save_precision)
+        ckpt.finish()
         raise SystemExit(f"[train_vocoder] DIVERGED: {e}; state saved at step {last_step} "
                          f"in {ckpt_dir} for forensics") from e
     finally:
@@ -162,6 +194,7 @@ def main(argv=None):
         writer.close()
     if ckpt.latest_step() != last_step:
         ckpt.save(last_step, state, precision=args.save_precision)
+    ckpt.finish()  # the last save is on disk before any rank goes on
     if shutdown.requested:
         print(f"[train_vocoder] interrupted at step {last_step}; resumable checkpoint in "
               f"{ckpt_dir} (--resume)")

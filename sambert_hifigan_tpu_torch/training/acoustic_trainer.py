@@ -15,6 +15,17 @@ at the loss boundary, so the losses, the gradients' reductions and the
 optimizer run in f32 on f32 masters.  bf16 shares f32's exponent range: no
 loss scale.
 
+Data parallel (parallel/mesh.py, in a process group): each rank holds a
+replica and its rows of the global batch, and the step computes the JAX
+step's global math.  The four loss denominators are summed over the ranks
+before the losses (one collective of 4 scalars), so each rank's terms are
+its share of the global masked means; the gradients and the terms are then
+SUM-reduced together (one collective), and the norm, the clip, AdamW,
+accumulation (each micro-step reduced) and the EMA run on the reduced
+gradients, the same on every rank.  The scheduled-sampling mask is drawn
+for the global batch and sliced to the rank's rows; the dropout seed is
+drawn in lockstep and the rank folded into it (rank 0 keeps it).
+
 The training path reaches no hand-written kernel: the JAX trainer reaches
 neither Pallas call (they sit behind `ar_decode` and the fused generator),
 so it is plain torch (cuBLAS, cuDNN).  Metrics stay on the device.
@@ -28,9 +39,10 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..config import LossWeights, TrainStageConfig, TTSConfig
-from ..losses.acoustic import acoustic_loss
+from ..losses.acoustic import acoustic_loss, loss_counts
 from ..models.acoustic_model import SAMBERTAcousticModel
 from ..models.layers import draw_seed, generator_from_seed
+from ..parallel import mesh
 from .optim import (Optimizer, current_lr, ema_update, global_norm, inference_params,
                     maybe_init_ema)
 from .train_state import AcousticTrainState
@@ -58,6 +70,16 @@ def acoustic_params_from_tree(tree: dict) -> dict:
     return tree.get("ema") or tree["model"]
 
 
+def sampling_mask(seed: int, shape, p: float, device) -> torch.Tensor:
+    """Scheduled sampling's per-frame Bernoulli(p) mask [B, T, 1] for this
+    rank's rows: drawn for the global batch (B x world size rows), as JAX
+    draws it over the global array, and sliced."""
+    b, t = shape[:2]
+    gen = generator_from_seed(seed, device)
+    draw = torch.rand((b * mesh.world_size(), t, 1), generator=gen, device=device) < p
+    return mesh.shard_rows(draw)
+
+
 def acoustic_train_step(
     state: AcousticTrainState,
     batch: Dict[str, torch.Tensor],
@@ -83,6 +105,7 @@ def acoustic_train_step(
     model = state.model
     dtype = torch.bfloat16 if mixed_precision else torch.float32
     dropout_seed, sampling_seed = draw_seed(rng), draw_seed(rng)
+    dropout_seed = mesh.fold_rank(dropout_seed)  # shards must not share masks
 
     def forward(teacher_mel):
         return model(batch["ph_ids"], batch["tone_ids"], batch["boundary_ids"], teacher_mel,
@@ -94,22 +117,30 @@ def acoustic_train_step(
     if scheduled_sampling > 0.0:
         with torch.no_grad():
             own = forward(teacher).mel_pred
-        gen = generator_from_seed(sampling_seed, teacher.device)
-        keep_own = torch.rand(teacher.shape[:2] + (1,), generator=gen,
-                              device=teacher.device) < scheduled_sampling
+        keep_own = sampling_mask(sampling_seed, teacher.shape, scheduled_sampling,
+                                 teacher.device)
         teacher = torch.where(keep_own, own.to(teacher.dtype), teacher)
     out = forward(teacher)
     pred = out.predictions
+    counts = None
+    if mesh.is_distributed():  # the global denominators, before the losses
+        counts = mesh.all_reduce_([loss_counts(
+            batch["mel_gt"], batch["dur_gt"], batch["pitch_gt"], out.frame_mask,
+            batch.get("phoneme_mask"), batch.get("pitch_mask"))])[0]
     total, metrics = acoustic_loss(
         out.mel_pred.float(), batch["mel_gt"],
         pred["log_dur_pred"].float(), batch["dur_gt"],
         pred["pitch_frm"].float(), batch["pitch_gt"],
         pred["energy_frm"].float(), batch["energy_gt"],
         mel_mask=out.frame_mask, phoneme_mask=batch.get("phoneme_mask"),
-        pitch_mask=batch.get("pitch_mask"), weights=weights,
+        pitch_mask=batch.get("pitch_mask"), weights=weights, counts=counts,
     )
     mark("forward")
     grads = torch.autograd.grad(total, state.opt.params)
+    if mesh.is_distributed():  # gradients and loss terms: global sums
+        terms = [metrics[k].detach().reshape(1).clone() for k in metrics]
+        mesh.all_reduce_(list(grads) + terms)
+        metrics = {k: t[0] for k, t in zip(metrics, terms)}
     mark("backward")
     metrics["grad_norm"] = global_norm(grads)
     state.opt.step(grads, norm=metrics["grad_norm"])

@@ -20,6 +20,11 @@ order (so the next step may update it in place at once), and a thread
 brings the copy to the host and writes it.  One save is in flight at a
 time; a failed one raises at the next `save` or `wait`, and `drain`
 returns its error instead, for the paths that must still save.
+
+In a process group (parallel/mesh.py) only rank 0 writes, background saves
+included; the replicas are identical, and every rank restores from the
+same directory.  `finish` is the barrier after the last save: no rank
+exits (or resumes) before the write has landed.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from ..config import AudioConfig, ConfigError, mel_config_fingerprint
+from ..parallel import mesh
 from .train_state import AcousticTrainState, VocoderTrainState
 
 TrainState = Union[AcousticTrainState, VocoderTrainState]
@@ -76,6 +82,8 @@ class CheckpointManager:
         thread, from a copy made on the device (see the module docstring)."""
         if precision not in (None, "f32", "bf16"):
             raise ValueError(f"unknown save precision: {precision!r}")
+        if not mesh.is_main():  # the replicas are identical: rank 0 writes
+            return
         payload = state.state_dict()
         payload["step"] = int(step)
         if precision == "bf16":
@@ -118,6 +126,13 @@ class CheckpointManager:
         except Exception as e:  # noqa: BLE001 — handed to the caller
             return e
         return None
+
+    def finish(self) -> Optional[BaseException]:
+        """`drain`, then wait for every rank: after it, the last save is on
+        disk for all of them.  Returns the drained error, if any."""
+        err = self.drain()
+        mesh.barrier()
+        return err
 
     def _write(self, step: int, payload: dict, meta: dict) -> None:
         path = self._step_dir(step)

@@ -3,7 +3,8 @@ append-only) and a console summary line.  The step's metrics stay on the
 device; `write` brings them to the host in one copy, at the log step only.
 `tensorboard=True` mirrors every scalar into TensorBoard event files when
 torch's SummaryWriter can be imported, and is silently off otherwise; the
-JSONL file stays the record."""
+JSONL file stays the record.  In a process group the metrics are global
+(the train steps reduce them), and only rank 0 writes them."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from pathlib import Path
 from typing import Dict, Mapping, Optional
 
 import torch
+
+from ..parallel import mesh
 
 
 def to_host(metrics: Mapping[str, torch.Tensor]) -> Dict[str, float]:
@@ -24,11 +27,13 @@ def to_host(metrics: Mapping[str, torch.Tensor]) -> Dict[str, float]:
 class MetricsWriter:
     def __init__(self, log_dir: str, name: str = "train", tensorboard: bool = False):
         self.path = Path(log_dir)
-        self.path.mkdir(parents=True, exist_ok=True)
+        self.writes = mesh.is_main()
+        if self.writes:
+            self.path.mkdir(parents=True, exist_ok=True)
         self.file = self.path / f"{name}_metrics.jsonl"
         self._t0 = time.monotonic()
         self._tb = None
-        if tensorboard:
+        if tensorboard and self.writes:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -37,8 +42,11 @@ class MetricsWriter:
                 self._tb = None
 
     def write(self, step: int, metrics: Mapping[str, torch.Tensor], **extra) -> Dict[str, float]:
-        """Fetch the metrics and append one JSONL record; returns them."""
+        """Fetch the metrics and append one JSONL record (rank 0); returns
+        them."""
         host = to_host(metrics)
+        if not self.writes:
+            return host
         record = {"step": int(step), "wall_time_s": round(time.monotonic() - self._t0, 3),
                   **host, **extra}
         with open(self.file, "a", encoding="utf-8") as f:

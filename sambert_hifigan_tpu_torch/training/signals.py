@@ -8,6 +8,12 @@
   not finite.  Trainers call it where the metrics come to the host anyway
   (the log step), so it adds no device sync; the trainer then saves an
   emergency checkpoint and exits non-zero.
+
+In a process group both are agreed across the ranks: `GracefulShutdown.
+agreed()` is a MAX of the flag over the host group, taken by every rank at
+the top of each step, so a rank signalled one step before its peers does
+not leave them blocked in a collective; and the metrics are global, so
+every rank reads the same divergence.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import math
 import signal
 import sys
 from typing import Mapping
+
+from ..parallel import mesh
 
 
 class TrainingDiverged(RuntimeError):
@@ -41,16 +49,17 @@ class GracefulShutdown:
 
     def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
         self.requested = False
+        self._signalled = False  # this process's own signal
         self._prev = {}
         for sig in signals:
             self._prev[sig] = signal.signal(sig, self._handle)
 
     def _handle(self, signum, frame):
-        if self.requested:  # second signal: defer to the original behavior
+        if self._signalled:  # second signal: defer to the original behavior
             prev = self._prev.get(signum)
             signal.signal(signum, prev if callable(prev) else signal.SIG_DFL)
             raise KeyboardInterrupt
-        self.requested = True
+        self._signalled = self.requested = True
         print(
             f"[signal] {signal.Signals(signum).name} received — finishing the "
             "current step, saving a checkpoint, then exiting (signal again to "
@@ -58,6 +67,16 @@ class GracefulShutdown:
             file=sys.stderr,
             flush=True,
         )
+
+    def agreed(self) -> bool:
+        """Whether any rank has been signalled; sets `requested` on every
+        rank if so.  Every rank must call it at the same point (in one
+        process, the local flag).  The flag is read from `_signalled`, which
+        only the handler sets: a signal that lands while the reduction runs
+        sets `requested`, which the assignment below overwrites, but is
+        still read at the next call."""
+        self.requested = mesh.any_rank(self._signalled or self.requested)
+        return self.requested
 
     def restore(self) -> None:
         """Reinstall the original handlers (for tests / nested use)."""

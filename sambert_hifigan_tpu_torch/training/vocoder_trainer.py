@@ -20,6 +20,13 @@ the feature maps are cast to f32 at the loss boundary, so every loss and
 both optimizers run in f32 on f32 masters.  bf16 shares f32's exponent
 range: no loss scale.
 
+Data parallel (parallel/mesh.py, in a process group): each rank holds a
+replica and its rows of the global batch.  Every loss is a plain mean over
+equal shards, so the global loss is the mean of the ranks' losses: the D
+and the G gradients, with their metrics, are SUM-reduced in one collective
+each and divided by the world size before their norms.  The spectral-norm
+u, v advance from the weights alone, so they stay identical on every rank.
+
 Optimizers: AdamW(lr 2e-4, betas (0.8, 0.99)) for G and for MSD + MPD
 jointly, each with the stage's schedule, clip and accumulation
 (training/optim.py); D keeps its own base rate.  Metrics stay on the
@@ -41,6 +48,7 @@ from ..losses.vocoder import (
 )
 from ..models.hifigan import HiFiGAN, HiFiGANGenerator
 from ..models.layers import init_defaults_
+from ..parallel import mesh
 from .optim import (
     Optimizer,
     current_lr,
@@ -91,6 +99,19 @@ def _f32(tensors) -> List:
     return [_f32(t) if isinstance(t, list) else t.float() for t in tensors]
 
 
+def _mean_over_ranks(grads, metrics: Dict[str, torch.Tensor]):
+    """The ranks' mean of the gradients and the metrics (one collective);
+    identity in one process."""
+    if not mesh.is_distributed():
+        return grads, metrics
+    terms = [v.detach().reshape(1).clone() for v in metrics.values()]
+    grads = list(grads)
+    n = mesh.world_size()
+    for t in mesh.all_reduce_(grads + terms):
+        t.div_(n)
+    return grads, {k: t[0] for k, t in zip(metrics, terms)}
+
+
 def vocoder_train_step(
     state: VocoderTrainState,
     mel: torch.Tensor,  # [B, n_mels, Tfrm]
@@ -127,6 +148,7 @@ def vocoder_train_step(
             wav_real, wav_fake.detach(), dtype, advance=True)
         d_loss, d_metrics = vocoder_discriminator_loss(_f32(msd_ro + mpd_ro), _f32(msd_fo + mpd_fo))
         d_grads = torch.autograd.grad(d_loss, d_params)
+        d_grads, d_metrics = _mean_over_ranks(d_grads, d_metrics)
         metrics["d_grad_norm"] = global_norm(d_grads)
         if d_update_every <= 1 or state.step % d_update_every == 0:
             state.d_opt.step(d_grads, norm=metrics["d_grad_norm"])
@@ -150,6 +172,7 @@ def vocoder_train_step(
     g_loss, g_metrics = vocoder_generator_loss(
         wav_real, wav_fake, audio, loss_mode=loss_mode, weights=weights, **kwargs)
     g_grads = torch.autograd.grad(g_loss, state.g_opt.params)
+    g_grads, g_metrics = _mean_over_ranks(g_grads, g_metrics)
     metrics["g_grad_norm"] = global_norm(g_grads)
     state.g_opt.step(g_grads, norm=metrics["g_grad_norm"])
     mark("g_step")

@@ -9,6 +9,16 @@ float32 on the CPU.
   against optax.ctc_loss on logits) within 1e-4 relative, and one AdamW
   step (optax.adamw(2e-3), weight decay 1e-4) within 1e-4 in the loss and
   1e-5 in every parameter.
+* A batch with one row that cannot align (more labels, with the blanks its
+  repeats need, than frames): optax gives that row a large finite loss
+  (log(0) stands at -1e5) whose gradient leads the batch; the port's
+  per-example losses and the batch loss match it within 1e-4 (relative),
+  and one AdamW step's parameters within 1e-5 wherever the gradient is
+  above 1e-5 of its global norm and within 2 lr everywhere (Adam's first
+  step is ~lr sign(g): one of 5120 weights of convs.0, at a gradient
+  near zero, moves either way on either side); the plain-torch copy of
+  optax's recursion matches optax on every row of a batch that can
+  align.
 * `train_ctc_aligner` draws the JAX package's batches, and from the same
   weights its loss history follows JAX's within 1e-4 (relative).
 * The duration contract: every `ctc_durations` sums to its frames and is
@@ -141,6 +151,71 @@ def test_one_adamw_step_matches_optax():
     np.testing.assert_allclose(float(p_loss), float(j_loss), rtol=1e-4)
     for k, v in net.state_dict().items():
         np.testing.assert_allclose(v.numpy(), j_after[k].numpy(), atol=1e-5, rtol=0, err_msg=k)
+
+
+def _infeasible_batch(seed):
+    """_samples(seed) and a last row of 6 frames for 8 labels with a repeat
+    (9 frames needed)."""
+    rng = np.random.default_rng(seed + 100)
+    ph = np.array([3, 7, 7, 1, 9, 2, 5, 4], np.int32)
+    samples = _samples(seed, n=5) + [(rng.standard_normal((6, N_MELS)).astype(np.float32), ph)]
+    return _batch(samples)
+
+
+def test_infeasible_rows_are_found_from_the_lengths():
+    labels = np.array([[1, 1, 2, 0], [1, 2, 3, 0], [4, 4, 4, 4]])
+    assert pa.infeasible_rows(labels, np.array([3, 3, 4]), np.array([3, 3, 7])).tolist() == [
+        True, False, False]
+    assert pa.infeasible_rows(labels, np.array([3, 3, 4]), np.array([4, 2, 6])).tolist() == [
+        False, True, True]
+
+
+def test_optax_recursion_matches_optax_on_feasible_rows():
+    """optax_ctc_loss on every row of a batch that can align (where
+    F.ctc_loss serves them) against optax.ctc_loss, within 1e-4."""
+    jnet, params = _jax_net_and_params(2)
+    net = _port_net(params)
+    mel, lab, mel_p, lab_p = _batch(_samples(7))
+    log_probs = torch.log_softmax(net(torch.from_numpy(mel)), dim=-1)
+    ours = pa.optax_ctc_loss(log_probs, torch.from_numpy(lab), torch.from_numpy(mel_p),
+                             torch.from_numpy(lab_p), pa.blank_id(VOCAB)).detach().numpy()
+    theirs = np.asarray(_jax_loss(jnet, VOCAB)(params, mel, lab, mel_p, lab_p, True))
+    np.testing.assert_allclose(ours, theirs, rtol=1e-4, atol=0)
+
+
+def test_infeasible_row_matches_optax():
+    """Per-example losses of a batch with one row that cannot align: the
+    row costs a large finite loss, as in optax, where F.ctc_loss alone
+    gives inf (and zero_infinity would drop it)."""
+    jnet, params = _jax_net_and_params(3)
+    net = _port_net(params)
+    mel, lab, mel_p, lab_p = batch = _infeasible_batch(3)
+    theirs = np.asarray(_jax_loss(jnet, VOCAB)(params, *batch, True))
+    ours = pa.ctc_losses(net, *(torch.from_numpy(a) for a in batch), VOCAB).detach().numpy()
+    assert theirs[-1] > 1e4 and np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, theirs, rtol=1e-4, atol=0)
+
+
+def test_one_adamw_step_with_an_infeasible_row_matches_optax():
+    jnet, params = _jax_net_and_params(4)
+    net = _port_net(params)
+    batch = _infeasible_batch(4)
+    loss_fn = _jax_loss(jnet, VOCAB)
+    opt = optax.adamw(LR)
+    j_loss, grads = jax.value_and_grad(loss_fn)(params, *batch)
+    updates, _ = opt.update(grads, opt.init(params), params)
+    j_after = aligner_state_dict_from_flax(jax.device_get(optax.apply_updates(params, updates)))
+    p_loss = pa.aligner_step(net, pa.make_aligner_optimizer(net, LR),
+                             [torch.from_numpy(a) for a in batch], VOCAB)
+    np.testing.assert_allclose(float(p_loss), float(j_loss), rtol=1e-4)
+    j_grads = {k: v.numpy() for k, v in
+               aligner_state_dict_from_flax(jax.device_get(grads)).items()}
+    norm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum()) for g in j_grads.values()))
+    for k, v in net.state_dict().items():
+        diff = np.abs(v.numpy() - j_after[k].numpy())
+        assert diff.max() <= 2 * LR, (k, diff.max())
+        big = np.abs(j_grads[k]) > 1e-5 * norm
+        assert diff[big].max(initial=0.0) <= 1e-5, (k, diff[big].max())
 
 
 def test_training_draws_jax_batches_and_follows_its_losses(monkeypatch):
