@@ -42,8 +42,17 @@ both trainers under `torch.distributed.run --nproc-per-node 1` (nccl), then
 acoustic model (B = 16, 4 steps) and the vocoder (B = 16, 3 steps) each
 against a single-process control on the card with bit-equal replicas, then
 the torchrun checkpoints through K1 and K2 and the offline tools
-(`copy_synth`, `eval_vocoder_waveform`, `eval_teacher_forced`).  Any failed
-phase raises and the script exits non-zero.  It imports nothing of JAX.
+(`copy_synth`, `eval_vocoder_waveform`, `eval_teacher_forced`).  Phase 11
+runs the tooling: `profiling` over its five surfaces (top kernels, busy
+against wall ms, the device's idle share; K1 and K2 read back from the
+exported traces where they run and nowhere else), `bench_encode_split`
+(wall and device ms of the encode, the decode and both),
+`bench_decode_modes` (K1 against the plain decode, checksums within
+phase 2's tolerance), `bench_scaling` at d = 256, 512, 1024, `utils/debug`
+on a pipeline tensor, `plot_audio`'s panel arrays on the card against the
+CPU, `make_demo_dataset` and `eval_demo_run` through K1 and K2, both demos,
+and `dryrun_multichip(2)` over gloo.  Any failed phase raises and the
+script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
 kernel's launches, error and times, and the card's name and power limit as
@@ -52,13 +61,17 @@ nvidia-smi gives them; last, `{"ok": true, "device": {...}}`.
 Times come from CUDA events around repeated launches after a warm-up; bounds
 are the larger of the bytes the function must move over the card's memory
 rate and its operations over the bf16 tensor-core peak (NVIDIA H100 SXM data
-sheet: 3.35 TB/s, 989 TFLOP/s dense).
+sheet: 3.35 TB/s, 989 TFLOP/s dense; `sambert_hifigan_tpu_torch/flops.py`).
+Device busy time and idle shares come from torch.profiler captures
+(`sambert_hifigan_tpu_torch/profiling.py`: the union of the kernels'
+intervals).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -66,9 +79,6 @@ import time
 import traceback
 import urllib.request
 from pathlib import Path
-
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
 
 # phase-2 tolerances of K1 against its plain version, on mels of mean |x| ~1
 # (same bf16 rounding points; the orders of the f32 sums differ and the
@@ -120,6 +130,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def bound_ms(nbytes: float, flops: float):
+    from sambert_hifigan_tpu_torch.flops import BF16_FLOP_PER_S, HBM_BYTES_PER_S
+
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -200,6 +212,8 @@ def k1_stream_ms(w, mk, bias, t: int) -> float:
     memory K/V and the self-attention caches (t + 1 rows, averaged over the
     steps), over the card's memory rate, for the whole decode: the floor for
     a decode whose weights and K/V come from device memory at every step."""
+    from sambert_hifigan_tpu_torch.flops import HBM_BYTES_PER_S
+
     L, b, s, d = mk.shape
     per_step = (nbytes(*w.matrices) + 2 * L * k1_memory_rows(bias) * d * mk.element_size()
                 + 2 * L * b * (t + 1) / 2 * d * mk.element_size())
@@ -656,28 +670,6 @@ def train_card_vs_cpu(cfg, dev):
     return row
 
 
-def profile_step(fn, n: int = 10):
-    """Device time of one call of fn under torch.profiler: the total over
-    every CUDA kernel, the kernel count, and the n kernels that took most,
-    as (name, ms, calls)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]  # ranges, not kernels
-    by_name = {}
-    for e in kernels:
-        ms, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    return dict(device_ms=sum(ms for ms, _ in by_name.values()), kernels=len(kernels),
-                top=[(name[:90], ms, calls) for name, (ms, calls) in ranked[:n]])
-
-
 def phase_train(pipe, dev):
     """Full-width vocoder training: the default config (generator 512
     channels, MSD 3 scales, MPD 2/3/5/7/11 at channel_div 1), adv_mel_fm,
@@ -693,6 +685,7 @@ def phase_train(pipe, dev):
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
     from sambert_hifigan_tpu_torch.ops import mrf as k2
     from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
+    from sambert_hifigan_tpu_torch.profiling import profile_step
     from sambert_hifigan_tpu_torch.train_vocoder import synthetic_pairs
     from sambert_hifigan_tpu_torch.training.checkpoint import CheckpointManager
     from sambert_hifigan_tpu_torch.training.metrics import to_host
@@ -824,20 +817,6 @@ AC_KEYS = sorted(["total_loss", "mel_loss", "dur_loss", "pitch_loss", "energy_lo
 AC_TOL_METRIC, AC_TOL_FLIPPED = 1e-4, 1e-3
 
 
-def acoustic_step_flops(cfg, b: int, tph: int, t: int) -> float:
-    """Matrix-product FLOPs of one train step (forward, and backward at twice
-    the forward), from the shapes: the encoder over b x tph phonemes, the
-    three predictors' convolutions, the decoder over b x t frames (dense
-    causal and cross attention over all t frames, as computed)."""
-    am = cfg.acoustic_model
-    d, enc, dec, va = am.d_model, am.encoder, am.decoder, am.variance_adaptor
-    per_token = enc.n_layers * (4 * d * d + 2 * d * enc.d_ff + 2 * tph * d)
-    per_token += 3 * va.predictor_layers * va.predictor_kernel_size * d * d + 3 * d
-    per_frame = dec.n_layers * (4 * d * d + 4 * d * d + 2 * d * dec.d_ff + 4 * t * d)
-    per_frame += am.n_mels * d + d * d + d * am.n_mels
-    return 3 * 2 * (b * tph * per_token + b * t * per_frame)
-
-
 def _small_acoustic_cfg(cfg):
     import dataclasses
 
@@ -957,10 +936,12 @@ def phase_acoustic_train(pipe, dev):
     import torch
 
     from sambert_hifigan_tpu_torch.data.dataset import batch_to_device, synthetic_batch
+    from sambert_hifigan_tpu_torch.flops import BF16_FLOP_PER_S, acoustic_step_flops
     from sambert_hifigan_tpu_torch.models.ar_decoder import decode_memory
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
     from sambert_hifigan_tpu_torch.ops import mrf as k2
     from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
+    from sambert_hifigan_tpu_torch.profiling import profile_step
     from sambert_hifigan_tpu_torch.training.acoustic_trainer import (
         acoustic_inference_params, init_acoustic_state, make_acoustic_step)
     from sambert_hifigan_tpu_torch.training.metrics import to_host
@@ -1284,6 +1265,7 @@ def phase_data(pipe, dev):
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
     from sambert_hifigan_tpu_torch.ops import mrf as k2
     from sambert_hifigan_tpu_torch.pipeline import build_pipeline
+    from sambert_hifigan_tpu_torch.profiling import profile_step
     from sambert_hifigan_tpu_torch.training import acoustic_trainer, vocoder_trainer
     from sambert_hifigan_tpu_torch.utils.eval_metrics import mcd, mel_mae
 
@@ -1402,7 +1384,7 @@ def phase_data(pipe, dev):
         row["acoustic"] = dict(
             B=b, host_collate_ms=collate_ms, host_copy_ms=copy_ms, prefetch_on=runs["on"],
             prefetch_off=runs["off"], profiled_batch=list(batch["mel_gt"].shape),
-            profile=top, device_idle_share=1 - top["device_ms"] / runs["on"]["median_step_ms"],
+            profile=top, device_idle_share=1 - top["busy_ms"] / runs["on"]["median_step_ms"],
             device=next(state.model.parameters()).device.type,
             checkpoints=sorted(p.parent.name for p in (tmp / "ac_on").glob("step_*/state.pt")))
         log("[data] train_acoustic --metadata", json.dumps(row["acoustic"]))
@@ -1623,6 +1605,284 @@ def phase_dp(pipe, dev):
     return row
 
 
+# ---- phase 11: the tooling --------------------------------------------------
+
+# the kernels each profiler surface must show (and, on a train surface, none)
+TOOL_SURFACES = {"e2e": {"K1", "K2"}, "decode": {"K1"}, "vocoder": {"K2"},
+                 "train-acoustic": set(), "train-vocoder": set()}
+# demangled names, e.g. "void (anonymous namespace)::ar_decode_kernel<256, 8, 16>(...)"
+KERNEL_NAMES = {"K1": re.compile(r"(^|[\s:])ar_decode_kernel<"),
+                "K2": re.compile(r"(^|[\s:])(chain|conv|operand)_kernel<")}
+TOOLS_DEMO_UTTS, TOOLS_SCALING_DIMS = 8, (256, 512, 1024)
+TOOLS_PHASE_LIMIT_S = 240.0  # a hung phase fails; the aim is under 90 s
+
+
+def trace_kernels(path) -> dict:
+    """{K1, K2: launches} read back from an exported Chrome trace's kernel
+    events."""
+    import gzip
+
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat", "").lower() == "kernel"]
+    return {k: sum(bool(rx.search(n)) for n in names) for k, rx in KERNEL_NAMES.items()}
+
+
+def tools_profiling(tmp: Path) -> dict:
+    """`python -m sambert_hifigan_tpu_torch.profiling` over the five surfaces
+    at full width, 2 reps each: per call, the top kernels, the kernel count,
+    busy ms against the wall ms without the profiler (and with it) and the
+    device's idle share; K1 and K2 (read back from each exported trace)
+    where they run, and only there."""
+    from sambert_hifigan_tpu_torch import profiling
+
+    rows = {}
+    for surface, want in TOOL_SURFACES.items():
+        res = profiling.main(["--surface", surface, "--reps", "2", "--top-ops", "5",
+                              "--output", str(tmp / surface)])
+        found = trace_kernels(res["trace"])
+        rows[surface] = dict(busy_ms=res["busy_ms"], wall_ms=res["wall_ms"],
+                             profiled_wall_ms=res["profiled_wall_ms"],
+                             idle_share=res["idle_share"], kernels=res["kernels"],
+                             device_ms=res["device_ms"], kernel_launches=found,
+                             top=res["top"][:5])
+        log(f"[tools] profiling {surface}", json.dumps(rows[surface]))
+        if {k for k, n in found.items() if n} != want:
+            raise AssertionError(f"profiling {surface}: kernels {found}, want {sorted(want)}")
+    return rows
+
+
+def tools_encode_split(dev) -> dict:
+    """bench_encode_split: wall and device ms of enc, dec and full at B = 1;
+    dec(enc()) against full()."""
+    from sambert_hifigan_tpu_torch import bench_encode_split as split
+
+    fns = split.build(device=dev)
+    row = {}
+    for name in ("enc", "dec", "full"):
+        dev_row = split.device_ms(fns[name], inner=3)
+        row[name] = dict(wall_ms=split.wall(fns[name], "cuda", reps=3, inner=5),
+                         busy_ms=dev_row["busy_ms"], kernels=dev_row["kernels"],
+                         profiled_wall_ms=dev_row["wall_ms"], top=dev_row["top"][:3])
+    row["dec_of_enc_vs_full_max_abs"] = float(
+        (fns["decode"](fns["enc"]()) - fns["full"]()).abs().max())
+    log("[tools] bench_encode_split", json.dumps(row))
+    if row["dec_of_enc_vs_full_max_abs"] > K1_TOL_MAX:
+        raise AssertionError(f"dec(enc()) departs from full(): {row}")
+    return row
+
+
+def tools_decode_modes(dev) -> dict:
+    """bench_decode_modes: K1 (2 reps) against the plain decode (1 rep after
+    its warm-up) at B = 1, T = 512; the checksums (and every frame) within
+    phase 2's K1 tolerance."""
+    from sambert_hifigan_tpu_torch import bench_decode_modes as modes
+
+    w, memory = modes.build(dev)
+    kernel, out_k = modes.run_mode("kernel", w, memory, reps=2, inner=1)
+    plain, out_p = modes.run_mode("plain", w, memory, reps=1, inner=1)
+    err = (out_k - out_p).abs()
+    row = dict(kernel=kernel, plain=plain, checksum_diff=abs(kernel["checksum"]
+                                                             - plain["checksum"]),
+               max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+               speedup=plain["ms"] / kernel["ms"])
+    log("[tools] bench_decode_modes", json.dumps(row))
+    if not (row["checksum_diff"] <= K1_TOL_MEAN * out_p.numel()
+            and row["mean_abs_err"] < K1_TOL_MEAN and row["max_abs_err"] < K1_TOL_MAX):
+        raise AssertionError(f"K1 against the plain decode: {row}")
+    return row
+
+
+def tools_scaling(dev) -> list:
+    """bench_scaling at d = 256, 512, 1024, B = 16: a warm-up and 3 timed
+    steps each."""
+    from sambert_hifigan_tpu_torch import bench_scaling
+
+    rows = bench_scaling.run(TOOLS_SCALING_DIMS, [16], device=dev, reps=1, k=3)
+    log("[tools] bench_scaling", json.dumps(rows))
+    if [r["d_model"] for r in rows] != list(TOOLS_SCALING_DIMS) or not all(
+            math.isfinite(r["mfu"]) and r["mfu"] > 0 for r in rows):
+        raise AssertionError(f"bench_scaling rows: {rows}")
+    return rows
+
+
+def tools_debug(pipe) -> dict:
+    """utils/debug on a pipeline tensor on the card: assert_shape passes and
+    raises, trace_shape prints once for two calls of one signature."""
+    import contextlib
+    import io
+    import os
+
+    from sambert_hifigan_tpu_torch.utils import debug
+
+    mel = pipe.text_to_mel([TEXTS[0]]).mel_pred
+    debug.assert_shape(mel, (1, None, pipe.cfg.audio.n_mels), "mel_pred")
+    try:
+        debug.assert_shape(mel, (2, None, pipe.cfg.audio.n_mels), "mel_pred")
+        raised = None
+    except AssertionError as e:
+        raised = str(e)
+    buf, saved = io.StringIO(), os.environ.get("DEBUG_SHAPES")
+    os.environ["DEBUG_SHAPES"] = "1"
+    try:
+        with contextlib.redirect_stdout(buf):
+            debug.trace_shape("phase11_mel_pred", mel)
+            debug.trace_shape("phase11_mel_pred", mel)
+    finally:
+        if saved is None:
+            del os.environ["DEBUG_SHAPES"]
+        else:
+            os.environ["DEBUG_SHAPES"] = saved
+    lines = buf.getvalue().splitlines()
+    row = dict(device=mel.device.type, raised=raised, trace_lines=lines)
+    log("[tools] utils/debug", json.dumps(row))
+    want = f"[trace-shape] phase11_mel_pred: {tuple(mel.shape)}:float32"
+    if (mel.device.type != "cuda" or lines != [want]
+            or raised != f"mel_pred: dim 0 expected 2, got 1 (shape {tuple(mel.shape)})"):
+        raise AssertionError(f"utils/debug: {row}")
+    return row
+
+
+def tools_plot(pipe, dev) -> dict:
+    """plot_audio's ten panel arrays of one synthesized wav on the card
+    against the CPU: log-mel, F0 and energy within phase 9's bounds."""
+    import numpy as np
+
+    from sambert_hifigan_tpu_torch.plot_audio import ALL_PANELS, panel_arrays
+
+    audio = pipe.cfg.audio
+    wav = pipe.synthesize(TEXTS[0])[None]
+    panels = ALL_PANELS.split(",")
+    card = panel_arrays(wav, audio.sample_rate, panels, audio, dev)
+    cpu = panel_arrays(wav, audio.sample_rate, panels, audio, "cpu")
+    d = np.abs(card["mel"] - cpu["mel"])
+    loud = cpu["mel"] > DATA_MEL_LOUD
+    (f0_a, v_a), (f0_b, v_b) = card["f0"], cpu["f0"]
+    both = v_a & v_b
+    row = dict(samples=wav.shape[-1], panels=sorted(set(panels) & set(card)),
+               mel_max_abs=float(d.max()), mel_max_abs_loud=float(d[loud].max()),
+               energy_max_abs=float(np.abs(card["energy"] - cpu["energy"]).max()),
+               f0_max_rel=float((np.abs(f0_a - f0_b)[both] / f0_b[both]).max())
+               if both.any() else 0.0,
+               voiced_flip_share=float((v_a != v_b).mean()), voiced_frames=int(v_b.sum()),
+               frames=int(v_b.size))
+    log("[tools] plot_audio panels, card vs CPU", json.dumps(row))
+    if not (row["panels"] == sorted(panels) and row["mel_max_abs"] <= DATA_MEL_TOL
+            and row["mel_max_abs_loud"] <= DATA_MEL_TOL_LOUD
+            and row["energy_max_abs"] <= DATA_ENERGY_TOL and row["f0_max_rel"] <= DATA_F0_REL
+            and row["voiced_flip_share"] <= DATA_FLIP_SHARE):
+        raise AssertionError(f"plot_audio panels on the card depart from the CPU's: {row}")
+    return row
+
+
+def tools_demo_eval(tmp: Path) -> dict:
+    """make_demo_dataset --n 8, checkpoints of its own (train_acoustic and
+    train_vocoder --synthetic 2), then eval_demo_run on them: copy synthesis
+    through K2, full TTS through K1 and K2."""
+    import numpy as np
+
+    from sambert_hifigan_tpu_torch import (eval_demo_run, make_demo_dataset, train_acoustic,
+                                           train_vocoder)
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+
+    meta = make_demo_dataset.main(["--output", str(tmp / "demo"), "--n",
+                                   str(TOOLS_DEMO_UTTS)])
+    logs = ["--log-dir", str(tmp / "logs")]
+    train_acoustic.main(["--synthetic", "2", "--checkpoint-dir", str(tmp / "ac"), "--sync-save",
+                         *logs])
+    train_vocoder.main(["--synthetic", "2", "--checkpoint-dir", str(tmp / "voc"),
+                        "--save-precision", "bf16", *logs])
+    k1_0, k2_0 = k1.launches, k2.launches
+    t0 = time.perf_counter()
+    res = eval_demo_run.main(["--metadata", str(meta), "--acoustic-checkpoint", str(tmp / "ac"),
+                              "--vocoder-checkpoint", str(tmp / "voc"), "--n",
+                              str(TOOLS_DEMO_UTTS), "--output-dir", str(tmp / "eval")])
+    launches = {"ar_decode": k1.launches - k1_0, "mrf": k2.launches - k2_0}
+    row = dict(steps=res["steps"], avg=res["avg"], launches=launches,
+               eval_s=time.perf_counter() - t0,
+               wavs=len(list((tmp / "eval").glob("*.wav"))))
+    log("[tools] make_demo_dataset, eval_demo_run", json.dumps(row))
+    finite = all(np.isfinite(r[k]) for r in res["rows"]
+                 for k in ("copy_mel_mae", "copy_mcd", "tts_mel_mae_dtw", "tts_mcd"))
+    if (len(res["rows"]) != TOOLS_DEMO_UTTS or not finite or res["steps"] != (2, 2)
+            or row["wavs"] != 2 * TOOLS_DEMO_UTTS or launches["ar_decode"] < TOOLS_DEMO_UTTS
+            or launches["mrf"] != 4 * (TOOLS_DEMO_UTTS + launches["ar_decode"])):
+        raise AssertionError(f"eval_demo_run: {row}")
+    return row
+
+
+def tools_demos() -> dict:
+    """Both demos at the default config on the card."""
+    from sambert_hifigan_tpu_torch import demo_ablation_modes, demo_feature_matching_loss
+
+    modes = demo_ablation_modes.main([])
+    loss, fm = demo_feature_matching_loss.main([])
+    per_disc = [fm[f"gen_fm_loss_disc_{i}"] for i in range(8)]
+    row = dict(ablation={m: {k: v for k, v in r.items()
+                             if k in ("gen_loss", "disc_loss", "discriminators_trained")}
+                         for m, r in modes.items()},
+               fm_total=loss, gen_fm_loss=fm["gen_fm_loss"], gen_fm_loss_disc=per_disc)
+    log("[tools] demo_ablation_modes, demo_feature_matching_loss", json.dumps(row))
+    zero_mel_only = ("disc_loss", "d_grad_norm", "gen_adv_loss", "gen_fm_loss", "gen_stft_loss")
+    ok = (sorted(k for k in modes["adv_mel_fm"] if k != "discriminators_trained") == TRAIN_KEYS
+          and [modes[m]["discriminators_trained"] for m in modes] == [False, True, True]
+          and all(modes["mel_only"][k] == 0.0 for k in zero_mel_only)
+          and modes["adv_mel"]["gen_fm_loss"] == 0.0
+          and all(math.isfinite(v) for r in modes.values() for v in r.values())
+          and abs(fm["gen_fm_loss"] - sum(per_disc) / 8) <= 1e-5 * abs(fm["gen_fm_loss"])
+          and math.isfinite(loss))
+    if not ok:
+        raise AssertionError(f"the demos: {row}")
+    return row
+
+
+def phase_tools(pipe, dev):
+    """The port's tooling on the card: the profiler over every surface (with
+    the device's idle share), the encode split, K1 against the plain decode
+    (bench_decode_modes), width scaling of the acoustic step, shape
+    debugging, plot panels against the CPU, a demo corpus evaluated through
+    both kernels, both demos, and the 2-rank dryrun over gloo."""
+    import tempfile
+
+    from sambert_hifigan_tpu_torch.dryrun import dryrun_multichip
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+
+    t_phase = time.perf_counter()
+    k1.launches = 0
+    k2.launches = 0
+    row, secs = {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        row[name] = fn(*args)
+        secs[name] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        timed("profiling", tools_profiling, tmp / "profile")
+        timed("encode_split", tools_encode_split, dev)
+        timed("decode_modes", tools_decode_modes, dev)
+        timed("scaling", tools_scaling, dev)
+        timed("debug", tools_debug, pipe)
+        timed("plot", tools_plot, pipe, dev)
+        timed("demo_eval", tools_demo_eval, tmp)
+        timed("demos", tools_demos)
+        timed("dryrun", dryrun_multichip, 2)
+    if row["dryrun"] is not True:
+        raise AssertionError("dryrun_multichip(2): stage dp did not pass")
+    row["launches"] = {"ar_decode": k1.launches, "mrf": k2.launches}
+    row["seconds"] = secs
+    row["phase_s"] = time.perf_counter() - t_phase
+    log("[tools]", json.dumps(row))
+    log(f"[tools] phase 11 took {row['phase_s']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    if row["phase_s"] > TOOLS_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 11 took {row['phase_s']:.1f} s (limit {TOOLS_PHASE_LIMIT_S})")
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -1677,6 +1937,7 @@ def main() -> int:
     acoustic_row = phase_acoustic_train(pipe, dev)
     data_row = phase_data(pipe, dev)
     dp_row = phase_dp(pipe, dev)
+    tools_row = phase_tools(pipe, dev)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -1689,6 +1950,7 @@ def main() -> int:
          "launches_acoustic_train": acoustic_row["trained"]["launches"]["ar_decode"],
          "launches_data_train": data_row["launches"]["ar_decode"],
          "launches_dp_train": dp_row["launches"]["ar_decode"],
+         "launches_tools": tools_row["launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -1701,6 +1963,7 @@ def main() -> int:
          "launches_acoustic_train": acoustic_row["trained"]["launches"]["mrf"],
          "launches_data_train": data_row["launches"]["mrf"],
          "launches_dp_train": dp_row["launches"]["mrf"],
+         "launches_tools": tools_row["launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -1720,7 +1983,10 @@ def main() -> int:
         "launches_dp_train: phase 10's (the torchrun and multiprocess_dp train steps, none, "
         "and those run in processes of their own; then one synthesize_batch of 2 texts from "
         "the torchrun checkpoints and the text_to_mel that gives their lengths, and "
-        "copy_synth of a 4-utterance toy corpus)")
+        "copy_synth of a 4-utterance toy corpus); launches_tools: phase 11's (the profiler's "
+        "e2e, decode and vocoder surfaces, 2 warm-up and 2 captured calls each, its train "
+        "surfaces none; the encode split; bench_decode_modes' kernel mode; the debug and "
+        "plot pipelines; eval_demo_run over 8 utterances; the demos and the dryrun none)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
