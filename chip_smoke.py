@@ -51,8 +51,15 @@ exported traces where they run and nowhere else), `bench_encode_split`
 phase 2's tolerance), `bench_scaling` at d = 256, 512, 1024, `utils/debug`
 on a pipeline tensor, `plot_audio`'s panel arrays on the card against the
 CPU, `make_demo_dataset` and `eval_demo_run` through K1 and K2, both demos,
-and `dryrun_multichip(2)` over gloo.  Any failed phase raises and the
-script exits non-zero.  It imports nothing of JAX.
+and `dryrun_multichip(2)` over gloo.  Phase 12 trains tensor-parallel
+(`--model-parallel`): `multiprocess_dp` with 2 ranks on the one card laid
+out as data 1 x model 2, at full width in bf16 (the acoustic model at
+phase 8's shape, the vocoder at phase 7's, 3 steps each), bit-equal to a
+single-process control, with each rank's persistent state, step and
+gather ms and peak memory; both trainers under torchrun `--model-parallel
+2` and their checkpoints through K1 and K2; and `dryrun_multichip(4)`,
+whose "dp x tp" stage runs data 2 x model 2.  Any failed phase raises and
+the script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
 kernel's launches, error and times, and the card's name and power limit as
@@ -1883,6 +1890,157 @@ def phase_tools(pipe, dev):
     return row
 
 
+# ---- phase 12: tensor parallelism -------------------------------------------
+
+TP_RANKS, TP_MODEL, TP_STEPS, TP_B, TP_TIMEOUT_S = 2, 2, 3, 16, 300
+# a hung phase fails; the aim is under 150 s
+TP_PHASE_LIMIT_S = 300.0
+
+
+def _tp_departure(res: dict, control: dict) -> dict:
+    """How far a TP run's metrics and gathered parameters are from its
+    control's: the largest relative departure of any metric at any step,
+    the parameters' largest absolute one, and how many of each differ."""
+    from sambert_hifigan_tpu_torch.multiprocess_dp import departures
+
+    metric = [max(departures(d, c).values()) for d, c in zip(res["history"], control["history"])]
+    diffs = {k: float((res["params"][k] - v).abs().max()) for k, v in control["params"].items()}
+    return dict(metric_departure=metric, metrics_unequal=sum(
+        d != c for d, c in zip(res["history"], control["history"])),
+        param_max_abs=max(diffs.values()), params_unequal=sum(v != 0 for v in diffs.values()),
+        params=len(diffs))
+
+
+def phase_tp(pipe, dev):
+    """Tensor parallelism over a model axis (`--model-parallel`).  The main
+    leg: `multiprocess_dp` with 2 ranks on the one card (gloo) laid out as
+    data 1 x model 2, at the default config's full width in its own mixed
+    precision (bf16) with dropout on, the acoustic model (B = 16,
+    synthetic_batch(tph 64, tfrm 512), phase 8's shape) and the vocoder
+    (adv_mel_fm, B = 16 x 32 frames, phase 7's), 3 steps each, against a
+    single-process control of the same batches in this process, both in
+    deterministic mode.  The ranks see the control's rows and gather its
+    whole weights, so every metric and the gathered parameters must be
+    bit-equal (TP_BOUND); each rank's persistent state (parameters, Adam
+    moments) against the control's, step and gather ms (two ranks on one
+    card measure correctness and state size, not scaling), peak memory.
+    Then both trainers under `torch.distributed.run --nproc-per-node 2
+    --model-parallel 2` side by side (the vocoder saving in bf16), their
+    checkpoints through K1 and K2 (`build_pipeline`, `synthesize_batch`),
+    and the dryrun's "dp x tp" stage at 4 ranks (data 2 x model 2)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sambert_hifigan_tpu_torch import multiprocess_dp as mp
+    from sambert_hifigan_tpu_torch.dryrun import dryrun_multichip
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import build_pipeline
+
+    t_phase = time.perf_counter()
+    cfg = pipe.cfg
+    row, secs = {}, {}
+    k1.launches = 0
+    k2.launches = 0
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # the control's, as the ranks'
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        common = dict(model_parallel=TP_MODEL, params=True, deterministic=True)
+        runs = [mp.make_run("acoustic", cfg, TP_STEPS, TP_B, tph=64, tfrm=512, **common),
+                mp.make_run("vocoder", cfg, TP_STEPS, TP_B, segment_frames=32,
+                            loss_mode="adv_mel_fm", **common)]
+        t0 = time.perf_counter()
+        control = mp.run_plan(runs, dev)
+        secs["control"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = mp.launch(runs, TP_RANKS, "cuda", tmp / "tp", timeout=TP_TIMEOUT_S)
+        secs["ranks"] = time.perf_counter() - t0
+        bad, _ = mp.compare(runs, control, ranks)
+        for i, run in enumerate(runs):
+            res = [r[i] for r in ranks]
+            ctl = control[i]
+            dep = [_tp_departure(r, ctl) for r in res]
+            row[run["model"]] = dict(
+                ranks=TP_RANKS, data=TP_RANKS // TP_MODEL, model=TP_MODEL, global_batch=TP_B,
+                steps=TP_STEPS, mixed_precision=getattr(cfg.training, run["model"]).mixed_precision,
+                departure=dep,
+                persistent_mib=[r["persistent_numel"] * 4 / 2 ** 20 for r in res],
+                control_persistent_mib=ctl["persistent_numel"] * 4 / 2 ** 20,
+                median_step_ms=[median(r["step_ms"][1:]) for r in res],
+                median_gather_ms=[median(r["gather_ms"][1:]) for r in res],
+                gather_mb_per_step=res[0]["gather_mb_per_step"],
+                control_median_step_ms=median(ctl["step_ms"][1:]),
+                peak_mib=[r["peak_mib"] for r in res], control_peak_mib=ctl["peak_mib"],
+                nondeterministic=sorted(set(ctl["nondeterministic"]).union(
+                    *[r["nondeterministic"] for r in res])),
+                final=res[0]["history"][-1].get("total_loss",
+                                                res[0]["history"][-1].get("gen_loss")))
+            log(f"[tp] {run['model']}, data 1 x model {TP_MODEL} on one card (gloo) against "
+                "one process", json.dumps(row[run["model"]]))
+            for r, d in enumerate(dep):
+                if d["metrics_unequal"] or d["params_unequal"]:
+                    bad.append(f"{run['model']} rank {r}: {d} (bound: bit-equal)")
+            if not all(r["persistent_numel"] < ctl["persistent_numel"] * 0.75 for r in res):
+                bad.append(f"{run['model']}: per-rank state {row[run['model']]['persistent_mib']}"
+                           f" MiB against the control's {row[run['model']]['control_persistent_mib']}")
+        if bad:
+            raise AssertionError("tensor parallelism against its controls:\n" + "\n".join(bad))
+
+        # both trainers under torchrun at --model-parallel 2, then their
+        # checkpoints through the kernels
+        t0 = time.perf_counter()
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc-per-node", str(TP_RANKS), "-m"]
+        flags = ["--synthetic", "2", "--model-parallel", str(TP_MODEL), "--log-dir",
+                 str(tmp / "logs")]
+        legs = mp.run_procs([
+            [*torchrun, "sambert_hifigan_tpu_torch.train_acoustic", *flags,
+             "--checkpoint-dir", str(tmp / "ac")],
+            [*torchrun, "sambert_hifigan_tpu_torch.train_vocoder", *flags,
+             "--checkpoint-dir", str(tmp / "voc"), "--save-precision", "bf16"]],
+            [tmp / "ac.log", tmp / "voc.log"], TP_TIMEOUT_S)
+        secs["torchrun"] = time.perf_counter() - t0
+        row["torchrun"] = dict(rcs=[rc for rc, _ in legs], checkpoints=[
+            sorted(p.name for p in (tmp / d).glob("step_*")) for d in ("ac", "voc")])
+        log("[tp] torchrun --model-parallel 2", json.dumps(row["torchrun"]))
+        for rc, out in legs:
+            if rc != 0 or out.count("(data 1 x model 2)") != TP_RANKS \
+                    or "done at step 2" not in out:
+                raise AssertionError(f"torchrun --model-parallel (rc {rc}):\n{out[-3000:]}")
+        tts = build_pipeline(cfg, device=dev, acoustic_checkpoint=str(tmp / "ac"),
+                             vocoder_checkpoint=str(tmp / "voc"))
+        texts = TEXTS[:2]
+        wavs = tts.synthesize_batch(texts)
+        torch.cuda.synchronize()
+        synth = {"ar_decode": k1.launches, "mrf": k2.launches}
+        totals, want = expected_samples(tts, texts)
+        row["synthesis"] = dict(totals=totals, wav_samples=[len(w) for w in wavs], want=want,
+                                launches=synth)
+        log("[tp] synthesis from the --model-parallel checkpoints", json.dumps(row["synthesis"]))
+        for wav, n in zip(wavs, want):
+            if wav.shape != (n,) or not np.isfinite(wav).all():
+                raise AssertionError(f"synthesize_batch gave {wav.shape}, want {n}")
+        if synth["ar_decode"] < 1 or synth["mrf"] != len(tts.mrf_weights) * synth["ar_decode"]:
+            raise AssertionError(f"kernels on the TP checkpoints' path: {row['synthesis']}")
+
+    t0 = time.perf_counter()
+    row["dryrun"] = dryrun_multichip(4)
+    secs["dryrun"] = time.perf_counter() - t0
+    if row["dryrun"] is not True:
+        raise AssertionError("dryrun_multichip(4): stage dp or dp x tp did not pass")
+    row["launches"] = {"ar_decode": k1.launches, "mrf": k2.launches}
+    row["seconds"] = secs
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase 12 took {row['phase_s']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    if row["phase_s"] > TP_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 12 took {row['phase_s']:.1f} s (limit {TP_PHASE_LIMIT_S})")
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -1938,6 +2096,7 @@ def main() -> int:
     data_row = phase_data(pipe, dev)
     dp_row = phase_dp(pipe, dev)
     tools_row = phase_tools(pipe, dev)
+    tp_row = phase_tp(pipe, dev)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -1951,6 +2110,7 @@ def main() -> int:
          "launches_data_train": data_row["launches"]["ar_decode"],
          "launches_dp_train": dp_row["launches"]["ar_decode"],
          "launches_tools": tools_row["launches"]["ar_decode"],
+         "launches_tp_train": tp_row["launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -1964,6 +2124,7 @@ def main() -> int:
          "launches_data_train": data_row["launches"]["mrf"],
          "launches_dp_train": dp_row["launches"]["mrf"],
          "launches_tools": tools_row["launches"]["mrf"],
+         "launches_tp_train": tp_row["launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -1986,7 +2147,10 @@ def main() -> int:
         "copy_synth of a 4-utterance toy corpus); launches_tools: phase 11's (the profiler's "
         "e2e, decode and vocoder surfaces, 2 warm-up and 2 captured calls each, its train "
         "surfaces none; the encode split; bench_decode_modes' kernel mode; the debug and "
-        "plot pipelines; eval_demo_run over 8 utterances; the demos and the dryrun none)")
+        "plot pipelines; eval_demo_run over 8 utterances; the demos and the dryrun none); "
+        "launches_tp_train: phase 12's (the tensor-parallel train steps in processes of their "
+        "own, none; then one synthesize_batch of 2 texts from the --model-parallel torchrun "
+        "checkpoints and the text_to_mel that gives their lengths; the dryrun none)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,12 +17,25 @@ dryrun_multichip(n)  -> stage "dp": n ranks in one process group (gloo,
                         channels; all 8 critics at channel_div 8).  The
                         verdict: every rank finished, every metric is
                         finite, and every rank holds the same parameters.
+                     -> stage "dp x tp", where n is even and >= 4 (the JAX
+                        condition): the same two steps on n ranks laid out
+                        as data n/2 x model 2, the train state stored
+                        sharded over the model axis, in float32 without
+                        dropout (`multiprocess_dp.comparable`).  The
+                        verdict: every rank finished, every metric is
+                        finite, the whole (replicated) leaves are bit-equal
+                        on every rank, each slice is bit-equal across the
+                        data groups, and against one process on the same
+                        global batch (model = 1) the metrics are within
+                        the JAX package's own bounds of its TP step
+                        (tests/test_tensor_parallel.py: rtol 2e-4 on the
+                        acoustic loss, 2e-3 on its grad norm, 3e-4 on the
+                        GAN's losses) and the gathered parameters within
+                        2 lr (two Adam first steps from the same weights
+                        move an element by at most lr each way).
 
-The JAX dryrun's second stage, "dp x tp" (tensor-parallel parameter
-sharding over a model axis), has no counterpart: each rank of the port
-holds a whole replica, so there is no sharding to check, and no verdict
-is printed for it.  Ranks run on the CUDA card (all on one card when there
-are fewer cards than ranks) unless device='cpu' is given.
+Ranks run on the CUDA card (all on one card when there are fewer cards
+than ranks) unless device='cpu' is given.
 """
 
 from __future__ import annotations
@@ -80,8 +93,72 @@ def tiny_config():
     )
 
 
+# the step-1 bounds of tests/test_tensor_parallel.py, JAX's TP step against
+# one device in float32
+TP_RTOL = {"total_loss": 2e-4, "grad_norm": 2e-3, "gen_loss": 3e-4, "disc_loss": 3e-4,
+           "gen_mel_loss": 3e-4, "gen_fm_loss": 3e-4}
+
+
+def _lrs(cfg, name: str) -> dict:
+    """{parameter-name prefix: the learning rate of its optimizer}."""
+    if name == "acoustic":
+        return {"": cfg.training.acoustic.learning_rate}
+    tr = cfg.training.vocoder
+    d_lr = tr.learning_rate_discriminator or tr.learning_rate
+    return {"generator.": tr.learning_rate, "msd.": d_lr, "mpd.": d_lr}
+
+
+def stage_dp_tp(n_devices: int, device, timeout: float) -> bool:
+    """Stage "dp x tp": data n/2 x model 2 against one process; prints its
+    verdict and returns it."""
+    import numpy as np
+
+    from . import multiprocess_dp as mp
+
+    cfg = mp.comparable(tiny_config())
+    data, model = n_devices // 2, 2
+    print(f"[dryrun] stage dp x tp: {n_devices} ranks on {device.type} (gloo), data {data} x "
+          f"model {model}, global batch {n_devices}")
+    runs = [mp.make_run("acoustic", cfg, 1, n_devices, tph=8, tfrm=16, lockstep=False,
+                        params=True, model_parallel=model),
+            mp.make_run("vocoder", cfg, 1, n_devices, segment_frames=8, lockstep=False,
+                        params=True, model_parallel=model)]
+    control = mp.run_plan(runs, device)  # one process: model = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mp.launch(runs, n_devices, device.type, Path(tmp), timeout=timeout)
+    ok = True
+    for i, name in enumerate(("acoustic", "vocoder GAN")):
+        res, ctl = [r[i] for r in ranks], control[i]
+        finite = all(math.isfinite(v) for r in res for v in r["history"][0].values())
+        whole = len({r["whole_digest"] for r in res}) == 1
+        slices = all(r["shard_digest"] == res[j % model]["shard_digest"]
+                     for j, r in enumerate(res))
+        gathered = len({r["digest"] for r in res}) == 1
+        got, want = res[0]["history"][0], ctl["history"][0]
+        dep = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-8) for k in TP_RTOL if k in want}
+        metrics_ok = all(v <= TP_RTOL[k] for k, v in dep.items()) and bool(dep)
+        lrs = _lrs(cfg, name.split()[0])
+        param_dep = max(
+            float(np.abs(res[0]["params"][k].numpy() - v.numpy()).max())
+            / next(lr for pre, lr in lrs.items() if k.startswith(pre))
+            for k, v in ctl["params"].items())
+        params_ok = param_dep <= 2.0 + 1e-3
+        step_ok = finite and whole and slices and gathered and metrics_ok and params_ok
+        shown = dict(list(got.items())[:6]) if i else got
+        print(f"[dryrun] stage dp x tp: {name} step {'ok' if step_ok else 'FAILED'}: {shown} "
+              f"(finite {finite}, whole leaves equal {whole}, slices equal across data groups "
+              f"{slices}; against one process: largest metric departure "
+              f"{max(dep.values(), default=float('nan')):.3g}, parameters "
+              f"{param_dep:.3g} lr (bound 2); per-rank state {res[0]['persistent_numel']} of "
+              f"{ctl['persistent_numel']} elements)")
+        ok = ok and step_ok
+    print(f"[dryrun] stage dp x tp: {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
 def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0) -> bool:
-    """Stage "dp" on n_devices ranks; prints its verdict and returns it."""
+    """Stage "dp" on n_devices ranks, then stage "dp x tp" where n_devices
+    is even and >= 4; prints each verdict and returns whether all passed."""
     from . import multiprocess_dp as mp
     from .kernels import resolve_device
 
@@ -103,6 +180,8 @@ def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0) -> boo
               f"{shown} (finite {finite}, replicas equal {same})")
         ok = ok and finite and same
     print(f"[dryrun] stage dp: {'PASS' if ok else 'FAIL'}")
+    if n_devices % 2 == 0 and n_devices >= 4:
+        ok = stage_dp_tp(n_devices, device, timeout) and ok
     return ok
 
 

@@ -21,6 +21,13 @@ global batch against a sum of per-rank partial sums rounds differently)
 and every rank's digest is equal (bit-equal replicas).  It prints one JSON
 summary, then PASS or FAIL, and exits non-zero on FAIL.
 
+A run's `model_parallel` M lays the ranks out as data N/M x model M and
+stores each rank's state sharded over the model axis (tensor parallelism):
+the ranks of a model group share their rows, so there is no lockstep run;
+instead every rank's whole (replicated) leaves must be bit-equal to rank
+0's and its slices to those of the first rank of its model index, and the
+gathered parameters equal on all.
+
 `--config small` is the JAX script's tiny acoustic model (d_model 32, one
 encoder and one decoder layer of 4 heads, FFN 64) and, for the vocoder, the
 generator at 32 initial channels with discriminators at 1/16 width;
@@ -38,6 +45,7 @@ initial state dict and global batches).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -52,6 +60,7 @@ from typing import Dict, List, Optional, Tuple
 
 
 REL_TOL = 5e-3
+CPU_THREADS = 2  # torch threads of a worker on the CPU
 
 
 def small_config(cfg):
@@ -94,11 +103,17 @@ def make_run(model: str, cfg, steps: int, batch_size: int, seed: int = 0, **kw) 
     lockstep (rank 0 also runs each step as one process, from a copy of the
     state it is about to step, on the whole global batch), params (return
     the trained model's state dict, on the host), control_steps (the steps
-    held to the control's trajectory; default `gated_steps`)."""
+    held to the control's trajectory; default `gated_steps`), model_parallel
+    (the model axis's size in a process group: the state is stored sharded
+    over it, and the ranks of a model group share their rows; a run in one
+    process, the control, trains whole; no lockstep above 1), deterministic
+    (cuDNN's deterministic algorithms and torch's deterministic mode, warn
+    only: the ops that have no deterministic form are reported, by their
+    warnings, in the result's `nondeterministic`)."""
     run = dict(model=model, cfg=cfg, steps=steps, batch_size=batch_size, seed=seed, tph=16,
                tfrm=64, segment_frames=32, loss_mode=None, init=None, batches=None,
                scheduled_sampling=None, local_digests=False, lockstep=True, params=False,
-               control_steps=None)
+               control_steps=None, model_parallel=1, deterministic=False)
     unknown = set(kw) - set(run)
     if unknown:
         raise TypeError(f"unknown run options: {sorted(unknown)}")
@@ -121,6 +136,65 @@ def _digests_of_reductions(record: List[str]):
         return inner(tensors)
 
     return inner, spy
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_digests(state) -> Tuple[str, str]:
+    """(digest of what this rank holds whole, digest of its slices) of a
+    sharded state: its parameters, their Adam moments, its EMA copies and
+    its buffers (spectral u, v: whole)."""
+    whole, sliced = list(state.model.buffers()), []
+    for opt, ema in state.parts():
+        emas = [None] * len(opt.params) if ema is None else list(ema.parameters())
+        for p, e, d in zip(opt.params, emas, opt.dims):
+            st = opt.adamw.state.get(p, {})
+            held = [p] + [st[k] for k in ("exp_avg", "exp_avg_sq") if k in st] + \
+                ([] if e is None else [e])
+            (whole if d is None else sliced).extend(held)
+    return _digest(whole), _digest(sliced)
+
+
+def _whole_params(state) -> Dict:
+    """The model's whole state dict (gathered where sharded: a collective)."""
+    payload = state.state_dict()
+    if "model" in payload:
+        return payload["model"]
+    return {f"{m}.{k}": v for m in ("generator", "msd", "mpd") for k, v in payload[m].items()}
+
+
+@contextlib.contextmanager
+def _deterministic(on: bool):
+    """torch's deterministic mode (warn only) and cuDNN's deterministic
+    algorithms inside, when `on`; yields the set of the warnings of ops
+    without a deterministic form."""
+    import warnings
+
+    import torch
+
+    found: set = set()
+    if not on:
+        yield found
+        return
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(), torch.backends.cudnn.deterministic)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield found
+        found.update(str(w.message)[:160] for w in caught
+                     if "deterministic" in str(w.message))
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
 
 
 def _single_process_step(train, state, i: int, rng) -> Dict[str, float]:
@@ -153,8 +227,11 @@ def execute(run: dict, device) -> dict:
     from .parallel import mesh
     from .pipeline import _ieee_f32
     from .training.metrics import to_host
+    from .training.train_state import persistent_numel
 
     cfg, steps, seed = run["cfg"], run["steps"], run["seed"]
+    tp = run["model_parallel"] if mesh.is_distributed() else 1
+    mesh.set_model_parallel(tp)
     device = torch.device(device)
     cuda = device.type == "cuda"
     if cuda:
@@ -199,40 +276,57 @@ def execute(run: dict, device) -> dict:
         raise ValueError(f"unknown model {run['model']!r}")
 
     mesh.replicate(state)
+    if tp > 1:
+        state.shard_()
     record: List[str] = []
     inner = None
     if run["local_digests"]:
         inner, mesh.all_reduce_ = _digests_of_reductions(record)
-    mesh.reduce_stats.update(calls=0, seconds=0.0, bytes=0, sync=cuda)
-    history, step_ms, reduce_ms, lockstep = [], [], [], []
+    for stats in (mesh.reduce_stats, mesh.gather_stats):
+        stats.update(calls=0, seconds=0.0, bytes=0, sync=cuda)
+    history, step_ms, reduce_ms, gather_ms, lockstep = [], [], [], [], []
     try:
-        with _ieee_f32():  # TF32 off: every process computes the same arithmetic
+        # TF32 off: every process computes the same arithmetic
+        with _ieee_f32(), _deterministic(run["deterministic"]) as nondeterministic:
             for i in range(steps):
-                if run["lockstep"] and mesh.is_distributed() and mesh.is_main():
+                if run["lockstep"] and tp == 1 and mesh.is_distributed() and mesh.is_main():
                     lockstep.append(_single_process_step(train, state, i, rng))
                 if cuda:
                     torch.cuda.synchronize(device)
                 mesh.barrier()  # every rank starts the timed step together
                 t0, r0 = time.perf_counter(), mesh.reduce_stats["seconds"]
+                g0 = mesh.gather_stats["seconds"]
                 metrics = train(state, i, rng)
                 if cuda:
                     torch.cuda.synchronize(device)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 reduce_ms.append((mesh.reduce_stats["seconds"] - r0) * 1e3)
+                gather_ms.append((mesh.gather_stats["seconds"] - g0) * 1e3)
                 history.append(to_host(metrics))
     finally:
         if inner is not None:
             mesh.all_reduce_ = inner
-    stats = dict(mesh.reduce_stats)
-    model = state.model
+    stats, gathered = dict(mesh.reduce_stats), dict(mesh.gather_stats)
+    numel = persistent_numel(state)
+    if tp > 1:
+        whole_digest, shard_digest = _tp_digests(state)
+        params = _whole_params(state)  # every rank gathers
+        digest = _digest(params.values())
+    else:
+        whole_digest = shard_digest = None
+        params = state.model.state_dict()
+        digest = mesh.params_digest(state)
     return dict(
-        history=history, step_ms=step_ms, reduce_ms=reduce_ms, digest=mesh.params_digest(state),
+        history=history, step_ms=step_ms, reduce_ms=reduce_ms, gather_ms=gather_ms,
+        digest=digest, whole_digest=whole_digest, shard_digest=shard_digest,
+        persistent_numel=numel, model_parallel=tp,
         reduce_calls=stats["calls"], reduce_mb_per_step=stats["bytes"] / 1e6 / steps,
-        params={k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        gather_calls=gathered["calls"], gather_mb_per_step=gathered["bytes"] / 1e6 / steps,
+        params={k: v.detach().cpu().clone() for k, v in params.items()}
         if run["params"] else None,
         peak_mib=torch.cuda.max_memory_allocated(device) / 2 ** 20 if cuda else None,
         lockstep=lockstep, local_digests=record, rank=mesh.rank(), world=mesh.world_size(),
-        device=str(device))
+        device=str(device), nondeterministic=sorted(nondeterministic))
 
 
 def run_plan(runs: List[dict], device) -> List[dict]:
@@ -319,7 +413,7 @@ def launch(runs: List[dict], nproc: int, device: str, workdir: Path,
         pickle.dump(runs, f)
     rdv = workdir / "rendezvous"
     rdv.unlink(missing_ok=True)
-    env = clean_env(**({"OMP_NUM_THREADS": "2"} if device == "cpu" else {}))
+    env = clean_env(**({"OMP_NUM_THREADS": str(CPU_THREADS)} if device == "cpu" else {}))
     cmds = [[sys.executable, "-m", "sambert_hifigan_tpu_torch.multiprocess_dp", "--worker",
              "--plan", str(plan), "--rank", str(r), "--world", str(nproc),
              "--init-method", f"file://{rdv}", "--device", device,
@@ -357,9 +451,18 @@ def compare(runs: List[dict], control: List[dict], ranks: List[List[dict]],
     """(every mismatch, the control's largest departure per run and step).
     A mismatch is a metric of a rank beyond `rel` of the control's at a
     gated step, a distributed step beyond `rel` of rank 0's lockstep
-    single-process step, or a rank whose parameters differ from rank 0's."""
+    single-process step, or a rank whose (whole) parameters differ from
+    rank 0's; with a model axis, also a rank whose whole leaves differ from
+    rank 0's or whose slices differ from those of the first rank of its
+    model index."""
     bad, worst = [], []
     for i, (run, c) in enumerate(zip(runs, control)):
+        m = ranks[0][i]["model_parallel"]
+        for r, res in enumerate(ranks[1:], 1):
+            if m > 1 and res[i]["whole_digest"] != ranks[0][i]["whole_digest"]:
+                bad.append(f"run {i}: rank {r}'s whole leaves differ from rank 0's")
+            if m > 1 and res[i]["shard_digest"] != ranks[r % m][i]["shard_digest"]:
+                bad.append(f"run {i}: rank {r}'s slices differ from rank {r % m}'s")
         worst.append([])
         for r, res in enumerate(ranks):
             d = res[i]
@@ -373,7 +476,7 @@ def compare(runs: List[dict], control: List[dict], ranks: List[List[dict]],
             if d["digest"] != ranks[0][i]["digest"]:
                 bad.append(f"run {i}: rank {r}'s parameters differ from rank 0's")
         lock = ranks[0][i]["lockstep"]
-        if run["lockstep"] and len(lock) != run["steps"]:
+        if run["lockstep"] and m == 1 and len(lock) != run["steps"]:
             bad.append(f"run {i}: {len(lock)} lockstep steps of {run['steps']}")
         for step, (md, ml) in enumerate(zip(ranks[0][i]["history"], lock)):
             bad += [f"run {i} step {step} {k}: {md[k]} vs the same step in one process {ml[k]}"

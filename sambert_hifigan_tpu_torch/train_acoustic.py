@@ -8,6 +8,8 @@
   python -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20    # no corpus
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20      # 2 ranks
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m sambert_hifigan_tpu_torch.train_acoustic --synthetic 20 --model-parallel 2
 
 Runs on the CUDA card unless --device cpu is given.  --metadata trains
 --steps steps on the corpus, in shuffled epochs of batches padded to the
@@ -29,7 +31,12 @@ cuda:(LOCAL_RANK % cards), builds the same global batch (--batch-size,
 rounded down to a multiple of the world size), keeps its rows, and reduces
 the step explicitly; rank 0 writes checkpoints and metrics.  A SIGTERM to
 any rank stops every rank at the same step.  Without torchrun it runs as
-one process.
+one process.  --model-parallel N lays the ranks out as (ranks / N) data x
+N model (parallel/mesh.py): the ranks of one model group keep the same
+rows, the batch is rounded to the data axis, and the train state (params,
+Adam moments, EMA) is stored sharded over the model axis
+(parallel/sharding_rules.py), each weight gathered whole for the step.
+Checkpoints are whole, so any N resumes from any other's.
 """
 
 from __future__ import annotations
@@ -120,6 +127,7 @@ def _train(args, device):
            else default_config())
     cfg = stage_config(cfg, args)
     validate_config(cfg)
+    mesh.set_model_parallel(args.model_parallel)  # raises on a world it does not divide
     tr = cfg.training.acoustic
     batch_size = mesh.round_batch(args.batch_size or tr.batch_size, "train_acoustic")
 
@@ -131,6 +139,9 @@ def _train(args, device):
         ckpt.restore(state)
         print(f"[train_acoustic] resumed from step {state.step}")
     mesh.replicate(state)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    if mesh.model_size() > 1:
+        state.shard_()  # params, moments and EMA: this rank's slices from here on
     step_fn = make_acoustic_step(cfg)
     if args.synthetic:
         source = (synthetic_batch(cfg, batch_size, tph=16, tfrm=64, seed=args.seed + i)
@@ -140,10 +151,10 @@ def _train(args, device):
         ds = TTSDataset(args.metadata, cfg, device=device)
         source = epochs(lambda n: ds.batches(batch_size, seed=args.seed + n))
         total_steps = args.steps
-    n_params = sum(p.numel() for p in model.parameters())
     print(f"[train_acoustic] on {device}, batch {batch_size}, {n_params} parameters, "
           f"{'bf16' if tr.mixed_precision else 'f32'}"
-          + (f", rank {mesh.rank()} of {mesh.world_size()}" if mesh.is_distributed() else ""))
+          + (f", rank {mesh.rank()} of {mesh.world_size()} (data {mesh.data_size()} x model "
+             f"{mesh.model_size()})" if mesh.is_distributed() else ""))
 
     writer = MetricsWriter(args.log_dir or cfg.paths.log_dir, "acoustic",
                            tensorboard=args.tensorboard)
@@ -183,7 +194,7 @@ def _train(args, device):
         err = ckpt.drain()  # a failed interval save must not hide the divergence
         if err:
             print(f"[train_acoustic] warning: a background save failed earlier: {err!r}")
-        if ckpt.latest_step() != last_step:
+        if ckpt.needs_save(last_step):
             ckpt.save(last_step, state, precision=args.save_precision)
         ckpt.finish()
         raise SystemExit(f"[train_acoustic] DIVERGED: {e}; state saved at step {last_step} "
@@ -196,7 +207,7 @@ def _train(args, device):
     err = ckpt.drain()
     if err:
         print(f"[train_acoustic] warning: a background save failed earlier: {err!r}")
-    if ckpt.latest_step() != last_step:
+    if ckpt.needs_save(last_step):
         ckpt.save(last_step, state, precision=args.save_precision)
     ckpt.finish()  # the last save is on disk before any rank goes on
     if shutdown.requested:

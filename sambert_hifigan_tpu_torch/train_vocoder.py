@@ -3,10 +3,12 @@
   python -m sambert_hifigan_tpu_torch.train_vocoder --metadata data/train/metadata.csv \
       [--loss-mode adv_mel_fm] [--steps 100000] [--batch-size 16] [--segment-frames 32] \
       [--checkpoint-dir checkpoints/vocoder] [--resume] [--prefetch {auto,on,off}] \
-      [--save-precision bf16] [--device cpu]
+      [--save-precision bf16] [--sync-save] [--model-parallel N] [--device cpu]
   python -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20    # no corpus
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20      # 2 ranks
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m sambert_hifigan_tpu_torch.train_vocoder --synthetic 20 --model-parallel 2
 
 Runs on the CUDA card unless --device cpu is given.  --metadata trains
 --steps steps on random (mel, waveform) crops of the corpus, in shuffled
@@ -14,14 +16,21 @@ epochs (TTSDataset: features extracted on the training device and cached).
 --synthetic N trains N steps on random pairs made from --seed; the weights
 are random from --seed too.  --prefetch on crops the next batches and
 copies them to the device on a background thread (data/prefetch.py).
-Checkpoints carry the mel fingerprint: --resume refuses one trained under
-another mel configuration.
+Interval saves are written by a background thread from a copy made on the
+device (--sync-save writes them in the step loop).  Checkpoints carry the
+mel fingerprint: --resume refuses one trained under another mel
+configuration.
 
 Under torchrun each rank joins the process group (parallel/mesh.py) on
 cuda:(LOCAL_RANK % cards), draws the same global pairs (--batch-size,
 rounded down to a multiple of the world size), keeps its rows, and
 averages the gradients over the ranks; rank 0 writes checkpoints and
-metrics.  Without torchrun it runs as one process.
+metrics.  Without torchrun it runs as one process.  --model-parallel N lays
+the ranks out as (ranks / N) data x N model (parallel/mesh.py): the ranks
+of one model group keep the same rows, the batch is rounded to the data
+axis, and the train state is stored sharded over the model axis
+(parallel/sharding_rules.py), each weight gathered whole for the step.
+Checkpoints are whole, so any N resumes from any other's.
 """
 
 from __future__ import annotations
@@ -67,6 +76,9 @@ def parse_args(argv=None):
     p.add_argument("--save-precision", choices=["f32", "bf16"], default="f32",
                    help="bf16 stores the discriminators and both optimizers' moments in "
                         "bf16; the generator and its EMA stay f32")
+    p.add_argument("--sync-save", action="store_true",
+                   help="write interval checkpoints in the step loop (default: a "
+                        "background thread writes a copy made on the device)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' trains on the CPU)")
     add_dist_flags(p)
@@ -124,6 +136,7 @@ def _train(args, device):
            else default_config())
     cfg = stage_config(cfg, args)
     validate_config(cfg)
+    mesh.set_model_parallel(args.model_parallel)  # raises on a world it does not divide
     loss_mode = args.loss_mode or cfg.vocoder.loss_mode
     batch_size = mesh.round_batch(args.batch_size or cfg.training.vocoder.batch_size,
                                   "train_vocoder")
@@ -135,6 +148,9 @@ def _train(args, device):
         ckpt.restore(state)
         print(f"[train_vocoder] resumed from step {state.step}")
     mesh.replicate(state)
+    n_params = sum(p.numel() for p in state.model.generator.parameters())
+    if mesh.model_size() > 1:
+        state.shard_()  # params, moments and EMA: this rank's slices from here on
     step_fn = make_vocoder_step(cfg, loss_mode=loss_mode)
     if args.synthetic:
         source = synthetic_pairs(batch_size, args.segment_frames, cfg.audio.hop_length,
@@ -145,15 +161,16 @@ def _train(args, device):
         source = epochs(lambda n: vocoder_batches_from_dataset(
             ds, batch_size, args.segment_frames, seed=args.seed + n))
         total_steps = args.steps
-    n_params = sum(p.numel() for p in state.model.generator.parameters())
     print(f"[train_vocoder] {loss_mode} on {device}, batch {batch_size} x "
           f"{args.segment_frames} frames, generator {n_params} parameters"
-          + (f", rank {mesh.rank()} of {mesh.world_size()}" if mesh.is_distributed() else ""))
+          + (f", rank {mesh.rank()} of {mesh.world_size()} (data {mesh.data_size()} x model "
+             f"{mesh.model_size()})" if mesh.is_distributed() else ""))
 
     writer = MetricsWriter(args.log_dir or cfg.paths.log_dir, "vocoder",
                            tensorboard=args.tensorboard)
     log_interval = cfg.training.vocoder.log_interval
     save_interval = cfg.training.vocoder.save_interval
+    save = dict(precision=args.save_precision, background=not args.sync_save)
 
     def put(pair):
         return tuple(to_device(a, device) for a in mesh.shard_batch(pair))
@@ -180,9 +197,12 @@ def _train(args, device):
                     print(writer.summary_line(i + 1, host,
                                               ["gen_loss", "gen_mel_loss", "disc_loss"]))
             if (i + 1) % save_interval == 0:
-                ckpt.save(i + 1, state, precision=args.save_precision)
+                ckpt.save(i + 1, state, **save)
     except TrainingDiverged as e:
-        if ckpt.latest_step() != last_step:
+        err = ckpt.drain()  # a failed interval save must not hide the divergence
+        if err:
+            print(f"[train_vocoder] warning: a background save failed earlier: {err!r}")
+        if ckpt.needs_save(last_step):
             ckpt.save(last_step, state, precision=args.save_precision)
         ckpt.finish()
         raise SystemExit(f"[train_vocoder] DIVERGED: {e}; state saved at step {last_step} "
@@ -192,7 +212,10 @@ def _train(args, device):
             batches.close()
         shutdown.restore()
         writer.close()
-    if ckpt.latest_step() != last_step:
+    err = ckpt.drain()
+    if err:
+        print(f"[train_vocoder] warning: a background save failed earlier: {err!r}")
+    if ckpt.needs_save(last_step):
         ckpt.save(last_step, state, precision=args.save_precision)
     ckpt.finish()  # the last save is on disk before any rank goes on
     if shutdown.requested:

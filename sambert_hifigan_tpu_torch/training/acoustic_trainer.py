@@ -26,6 +26,16 @@ gradients, the same on every rank.  The scheduled-sampling mask is drawn
 for the global batch and sliced to the rank's rows; the dropout seed is
 drawn in lockstep and the rank folded into it (rank 0 keeps it).
 
+Tensor parallel (a sharded state, `AcousticTrainState.shard_`): "ranks"
+above means the data axis.  The ranks of one model group hold the same
+rows and draw the same masks (the data index is what is folded); the step
+gathers the whole weights over the model group first (one collective),
+runs the unchanged forward and backward, reduces the whole gradients over
+the data axis only, gives the replicated leaves' gradients of the group's
+first rank to the others, takes the norm of the whole gradients (JAX's
+global norm), and returns to the slices, which AdamW and the EMA update
+elementwise.  No activation moves between ranks.
+
 The training path reaches no hand-written kernel: the JAX trainer reaches
 neither Pallas call (they sit behind `ar_decode` and the fused generator),
 so it is plain torch (cuBLAS, cuDNN).  Metrics stay on the device.
@@ -72,11 +82,11 @@ def acoustic_params_from_tree(tree: dict) -> dict:
 
 def sampling_mask(seed: int, shape, p: float, device) -> torch.Tensor:
     """Scheduled sampling's per-frame Bernoulli(p) mask [B, T, 1] for this
-    rank's rows: drawn for the global batch (B x world size rows), as JAX
-    draws it over the global array, and sliced."""
+    rank's rows: drawn for the global batch (B x data-axis size rows), as
+    JAX draws it over the global array, and sliced."""
     b, t = shape[:2]
     gen = generator_from_seed(seed, device)
-    draw = torch.rand((b * mesh.world_size(), t, 1), generator=gen, device=device) < p
+    draw = torch.rand((b * mesh.data_size(), t, 1), generator=gen, device=device) < p
     return mesh.shard_rows(draw)
 
 
@@ -106,6 +116,7 @@ def acoustic_train_step(
     dtype = torch.bfloat16 if mixed_precision else torch.float32
     dropout_seed, sampling_seed = draw_seed(rng), draw_seed(rng)
     dropout_seed = mesh.fold_rank(dropout_seed)  # shards must not share masks
+    state.opt.gather_()  # the whole weights, where the state is sharded
 
     def forward(teacher_mel):
         return model(batch["ph_ids"], batch["tone_ids"], batch["boundary_ids"], teacher_mel,
@@ -123,7 +134,7 @@ def acoustic_train_step(
     out = forward(teacher)
     pred = out.predictions
     counts = None
-    if mesh.is_distributed():  # the global denominators, before the losses
+    if mesh.data_size() > 1:  # the global denominators, before the losses
         counts = mesh.all_reduce_([loss_counts(
             batch["mel_gt"], batch["dur_gt"], batch["pitch_gt"], out.frame_mask,
             batch.get("phoneme_mask"), batch.get("pitch_mask"))])[0]
@@ -137,12 +148,14 @@ def acoustic_train_step(
     )
     mark("forward")
     grads = torch.autograd.grad(total, state.opt.params)
-    if mesh.is_distributed():  # gradients and loss terms: global sums
+    if mesh.data_size() > 1:  # gradients and loss terms: global sums
         terms = [metrics[k].detach().reshape(1).clone() for k in metrics]
         mesh.all_reduce_(list(grads) + terms)
         metrics = {k: t[0] for k, t in zip(metrics, terms)}
+    state.opt.sync_replicated_(grads)
     mark("backward")
     metrics["grad_norm"] = global_norm(grads)
+    state.opt.release_()
     state.opt.step(grads, norm=metrics["grad_norm"])
     metrics["lr"] = torch.full((), current_lr(stage, state.step), dtype=torch.float32,
                                device=teacher.device)

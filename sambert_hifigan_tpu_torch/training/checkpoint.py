@@ -25,6 +25,13 @@ In a process group (parallel/mesh.py) only rank 0 writes, background saves
 included; the replicas are identical, and every rank restores from the
 same directory.  `finish` is the barrier after the last save: no rank
 exits (or resumes) before the write has landed.
+
+A state sharded over the model axis (tensor parallelism) is saved in the
+same format, with whole tensors: every rank calls `save`, which gathers
+the slices (the train state's `state_dict()`, collectives in step order on
+the caller's thread; a background save then writes that copy), and rank 0
+writes.  A checkpoint is restored into the whole state, before the
+trainer shards it, so any model size resumes from any other's checkpoint.
 """
 
 from __future__ import annotations
@@ -82,9 +89,11 @@ class CheckpointManager:
         thread, from a copy made on the device (see the module docstring)."""
         if precision not in (None, "f32", "bf16"):
             raise ValueError(f"unknown save precision: {precision!r}")
-        if not mesh.is_main():  # the replicas are identical: rank 0 writes
+        if not (mesh.is_main() or state.sharded):  # the replicas are identical
             return
-        payload = state.state_dict()
+        payload = state.state_dict()  # a sharded state gathers: every rank takes part
+        if not mesh.is_main():  # rank 0 writes
+            return
         payload["step"] = int(step)
         if precision == "bf16":
             payload.update({k: _to_bf16(payload[k]) for k in state.BF16_KEYS})
@@ -126,6 +135,14 @@ class CheckpointManager:
         except Exception as e:  # noqa: BLE001 — handed to the caller
             return e
         return None
+
+    def needs_save(self, step: int) -> bool:
+        """Whether the latest checkpoint on disk is not of `step`, as rank 0
+        sees it (after its own saves landed: call after `drain`), on every
+        rank: a sharded state's save is a collective, so every rank must
+        take the same branch, and another rank may read the directory
+        before rank 0's background write has landed."""
+        return mesh.any_rank(mesh.is_main() and self.latest_step() != step)
 
     def finish(self) -> Optional[BaseException]:
         """`drain`, then wait for every rank: after it, the last save is on

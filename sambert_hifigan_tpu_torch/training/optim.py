@@ -19,6 +19,16 @@ this is the same function in torch:
   mean acc += (g - acc) / (n + 1) of k gradients is applied as ONE update,
   and the others change nothing.
 * EMA: ema <- decay * ema + (1 - decay) * params after every step.
+* Tensor parallelism (`Optimizer.shard_`, parallel/sharding_rules.py):
+  between steps each rank holds only its model-axis slice of every
+  sharded parameter, of its two Adam moments and of its accumulator (and
+  `shard_module_` slices the EMA copy alike).  A step gathers the whole
+  parameters (`gather_`), computes whole gradients, returns to the slices
+  (`release_`), and `step` keeps its own slice of each gradient: clipping,
+  AdamW, accumulation and the EMA are elementwise, so each slice is
+  updated as the whole tensor would be.  The clip's norm is the whole
+  gradient's: given by the caller, or, for an accumulated update, taken
+  from the accumulator gathered whole.
 """
 
 from __future__ import annotations
@@ -27,12 +37,13 @@ import argparse
 import copy
 import dataclasses
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..config import ConfigError, TrainStageConfig
+from ..parallel import mesh, sharding_rules
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -100,9 +111,11 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 class Optimizer:
     """clip? -> AdamW(schedule), accumulated over accumulate_steps
-    micro-steps.  `step(grads, norm)` takes the gradients of `params` in
-    order and, optionally, their `global_norm` when the caller has it
-    already: the clip reuses it unless accumulating."""
+    micro-steps.  `step(grads, norm)` takes the (whole) gradients of
+    `params` in order and, optionally, their `global_norm` when the caller
+    has it already: the clip reuses it unless accumulating.  `dims` gives
+    each parameter's model-axis dimension once sharded (`shard_`), None
+    for a whole one."""
 
     def __init__(self, params: Sequence[nn.Parameter], tr: TrainStageConfig,
                  base_lr: Optional[float] = None):
@@ -115,10 +128,73 @@ class Optimizer:
         self.applied = 0  # updates applied: the schedule's count
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else []
+        self.dims: List[Optional[int]] = [None] * len(self.params)
+        self.sharded = False
+        self._shards: Optional[List[torch.Tensor]] = None  # the slices while gathered
+
+    # ---- tensor parallelism ----
+
+    def _sharded(self, tensors):
+        return [t for t, d in zip(tensors, self.dims) if d is not None]
+
+    @torch.no_grad()
+    def shard_(self, dims: Sequence[Optional[int]]) -> None:
+        """Keep this rank's slice of every parameter with a dimension in
+        `dims`, of its moments and of its accumulator."""
+        self.dims, self.sharded = list(dims), True
+        for p, d in zip(self.params, self.dims):
+            if d is None:
+                continue
+            p.data = sharding_rules.own([p.data], [d])[0]
+            st = self.adamw.state.get(p, {})
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in st:
+                    st[k] = sharding_rules.own([st[k]], [d])[0]
+        self.acc = sharding_rules.own(self.acc, self.dims) if self.acc else []
+
+    @torch.no_grad()
+    def gather_(self) -> None:
+        """The whole parameters in place of the slices (one collective), for
+        a forward and backward; a no-op unless sharded."""
+        if not self.sharded or self._shards is not None:
+            return
+        self._shards = self._sharded([p.data for p in self.params])
+        dims = self._sharded(self.dims)
+        for p, full in zip(self._sharded(self.params),
+                           sharding_rules.gather(self._shards, dims)):
+            p.data = full
+
+    def release_(self) -> None:
+        """Back to the slices (the whole copies are freed); a no-op unless
+        gathered."""
+        if self._shards is None:
+            return
+        for p, s in zip(self._sharded(self.params), self._shards):
+            p.data = s
+        self._shards = None
+
+    def sync_replicated_(self, grads: Sequence[torch.Tensor]) -> None:
+        """The whole (replicated) parameters' gradients of the model group's
+        first rank on every rank of the group, so that those parameters stay
+        bit-equal across the group; a no-op unless sharded."""
+        if self.sharded:
+            mesh.broadcast_model_([g for g, d in zip(grads, self.dims) if d is None])
+
+    def whole_norm(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """`global_norm` of the whole tensors of which `tensors` (one per
+        parameter) hold this rank's slices."""
+        if self.sharded:
+            tensors = sharding_rules.gather(tensors, self.dims)
+        return global_norm(tensors)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
              norm: Optional[torch.Tensor] = None) -> None:
+        if self.sharded:
+            if self._shards is not None:
+                raise RuntimeError("Optimizer.step on gathered parameters: release_() first")
+            grads = [g if d is None else mesh.own_slice(g, d).contiguous()
+                     for g, d in zip(grads, self.dims)]
         if self.k > 1:
             for a, g in zip(self.acc, grads):
                 a.add_((g - a) / (self.mini_step + 1))
@@ -127,7 +203,7 @@ class Optimizer:
                 return
             grads, norm = self.acc, None
         if self.clip is not None:
-            norm = global_norm(grads) if norm is None else norm
+            norm = self.whole_norm(grads) if norm is None else norm
             grads = [torch.where(norm < self.clip, g, g / norm * self.clip) for g in grads]
         for p, g in zip(self.params, grads):
             p.grad = g
@@ -143,10 +219,28 @@ class Optimizer:
                 a.zero_()
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), "applied": self.applied,
-                "mini_step": self.mini_step, "acc": list(self.acc)}
+        """The state with whole tensors: sharded moments and accumulator
+        gathered (one collective, on every rank of the model group)."""
+        sd = {"adamw": self.adamw.state_dict(), "applied": self.applied,
+              "mini_step": self.mini_step, "acc": list(self.acc)}
+        if self.sharded:
+            state = {i: dict(st) for i, st in sd["adamw"]["state"].items()}
+            slots = [(i, k) for i, d in enumerate(self.dims) if d is not None
+                     for k in ("exp_avg", "exp_avg_sq") if k in state.get(i, {})]
+            acc_at = [i for i, d in enumerate(self.dims) if d is not None] if self.acc else []
+            full = sharding_rules.gather(
+                [state[i][k] for i, k in slots] + [self.acc[i] for i in acc_at],
+                [self.dims[i] for i, _ in slots] + [self.dims[i] for i in acc_at])
+            for (i, k), t in zip(slots, full):
+                state[i][k] = t
+            for i, t in zip(acc_at, full[len(slots):]):
+                sd["acc"][i] = t
+            sd["adamw"] = dict(sd["adamw"], state=state)
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
+        if self.sharded:
+            raise RuntimeError("restore a checkpoint into the whole state, before it is sharded")
         self.adamw.load_state_dict(sd["adamw"])
         self.applied = int(sd["applied"])
         self.mini_step = int(sd["mini_step"])

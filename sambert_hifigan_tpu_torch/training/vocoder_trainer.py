@@ -27,6 +27,16 @@ and the G gradients, with their metrics, are SUM-reduced in one collective
 each and divided by the world size before their norms.  The spectral-norm
 u, v advance from the weights alone, so they stay identical on every rank.
 
+Tensor parallel (a sharded state, `VocoderTrainState.shard_`): "ranks"
+above means the data axis, whose size divides.  The step gathers G's and
+D's whole weights over the model group first; the D update returns D to
+its slices, updates them and gathers D again, so that the G pass meets
+the updated discriminators; after the G update both return to their
+slices.  Spectral norm's u, v advance on the D pass from the gathered
+weight, and weight norm's per-channel norm is taken of the gathered v.
+The replicated leaves' gradients of the model group's first rank are
+given to the others, and the norms are of the whole gradients.
+
 Optimizers: AdamW(lr 2e-4, betas (0.8, 0.99)) for G and for MSD + MPD
 jointly, each with the stage's schedule, clip and accumulation
 (training/optim.py); D keeps its own base rate.  Metrics stay on the
@@ -100,13 +110,13 @@ def _f32(tensors) -> List:
 
 
 def _mean_over_ranks(grads, metrics: Dict[str, torch.Tensor]):
-    """The ranks' mean of the gradients and the metrics (one collective);
-    identity in one process."""
-    if not mesh.is_distributed():
+    """The data axis's mean of the gradients and the metrics (one
+    collective); identity on a data axis of one rank."""
+    if mesh.data_size() == 1:
         return grads, metrics
     terms = [v.detach().reshape(1).clone() for v in metrics.values()]
     grads = list(grads)
-    n = mesh.world_size()
+    n = mesh.data_size()
     for t in mesh.all_reduce_(grads + terms):
         t.div_(n)
     return grads, {k: t[0] for k, t in zip(metrics, terms)}
@@ -137,6 +147,9 @@ def vocoder_train_step(
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     metrics: Dict[str, torch.Tensor] = {}
     train_d = should_train_discriminator(loss_mode)
+    state.g_opt.gather_()  # the whole weights, where the state is sharded
+    if train_d:
+        state.d_opt.gather_()
 
     wav_fake = model.generator(mel, dtype=dtype)  # f32 (tanh in f32)
     mark("g_forward")
@@ -149,9 +162,12 @@ def vocoder_train_step(
         d_loss, d_metrics = vocoder_discriminator_loss(_f32(msd_ro + mpd_ro), _f32(msd_fo + mpd_fo))
         d_grads = torch.autograd.grad(d_loss, d_params)
         d_grads, d_metrics = _mean_over_ranks(d_grads, d_metrics)
+        state.d_opt.sync_replicated_(d_grads)
         metrics["d_grad_norm"] = global_norm(d_grads)
         if d_update_every <= 1 or state.step % d_update_every == 0:
+            state.d_opt.release_()
             state.d_opt.step(d_grads, norm=metrics["d_grad_norm"])
+            state.d_opt.gather_()  # the G pass meets the updated D
         metrics.update(d_metrics)
     else:
         metrics["disc_loss"] = zero
@@ -173,7 +189,10 @@ def vocoder_train_step(
         wav_real, wav_fake, audio, loss_mode=loss_mode, weights=weights, **kwargs)
     g_grads = torch.autograd.grad(g_loss, state.g_opt.params)
     g_grads, g_metrics = _mean_over_ranks(g_grads, g_metrics)
+    state.g_opt.sync_replicated_(g_grads)
     metrics["g_grad_norm"] = global_norm(g_grads)
+    state.g_opt.release_()
+    state.d_opt.release_()
     state.g_opt.step(g_grads, norm=metrics["g_grad_norm"])
     mark("g_step")
     metrics.update(g_metrics)
