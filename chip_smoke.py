@@ -58,8 +58,15 @@ phase 8's shape, the vocoder at phase 7's, 3 steps each), bit-equal to a
 single-process control, with each rank's persistent state, step and
 gather ms and peak memory; both trainers under torchrun `--model-parallel
 2` and their checkpoints through K1 and K2; and `dryrun_multichip(4)`,
-whose "dp x tp" stage runs data 2 x model 2.  Any failed phase raises and
-the script exits non-zero.  It imports nothing of JAX.
+whose "dp x tp" stage runs data 2 x model 2.  Phase 13 serves data-parallel
+over a device list (`TTSPipeline(devices=...)`): the default config at full
+width with the main path's weights split over two replicas on the one card
+(and over every visible card where there are more), each replica's rows
+bit-equal to a direct call on them, one frame bucket for a batch whose last
+replica alone overflows, `text_to_mel`, `vocode`, `stream`, `warmup` and a
+`DynamicBatcher` over the split pipeline, warm ms against one device, and
+the launches of one split call.  Any failed phase raises and the script
+exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
 kernel's launches, error and times, and the card's name and power limit as
@@ -76,6 +83,7 @@ intervals).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1067,17 +1075,22 @@ def phase_acoustic_train(pipe, dev):
     return row
 
 
-def expected_samples(tts, texts):
-    """(total_frames, each wav's length) of tts.synthesize_batch(texts):
-    min(total_frames, the frame bucket the batch ran in) * hop, where the
-    bucket is the first guess unless a row overflowed it."""
+def batch_frame_bucket(tts, texts, totals) -> int:
+    """The frame bucket tts.synthesize_batch(texts) runs in: the first guess
+    unless a row's total overflowed it."""
     from sambert_hifigan_tpu_torch.text.frontend import pick_bucket
 
-    bucket = tts._initial_bucket(tts._frontend_args(texts)[0], 1.0)
-    totals = tts.text_to_mel(texts).total_frames.cpu().tolist()
+    bucket = tts._initial_bucket(tts._features(texts)[0], 1.0)
     buckets = tts.cfg.runtime.frame_buckets
-    used = bucket if max(totals) <= bucket else pick_bucket(min(max(totals), max(buckets)),
+    return bucket if max(totals) <= bucket else pick_bucket(min(max(totals), max(buckets)),
                                                             buckets)
+
+
+def expected_samples(tts, texts):
+    """(total_frames, each wav's length) of tts.synthesize_batch(texts):
+    min(total_frames, the frame bucket the batch ran in) * hop."""
+    totals = tts.text_to_mel(texts).total_frames.cpu().tolist()
+    used = batch_frame_bucket(tts, texts, totals)
     return totals, [min(int(t), used) * tts.hop for t in totals]
 
 
@@ -2041,6 +2054,276 @@ def phase_tp(pipe, dev):
     return row
 
 
+# ---- phase 13: data-parallel serving over several replicas --------------------
+
+MESH_PHASE_LIMIT_S = 90.0  # a hung phase fails; the aim is under 45 s
+# the split batch against `pipe`'s B = 4 call: the stream's bound.  The
+# replicas run B = 2 where `pipe` runs B = 4, so cuBLAS, cuDNN and K1's plan
+# may sum in another order, and K1's bf16 feedback carries a flipped rounding
+MESH_TOL_MAX = STREAM_TOL_MAX
+MESH_WARM, MESH_REPS = 2, 5
+# ~20 frames a phoneme (the duration predictor's bias raised, its kernel
+# scaled by 0.1): in the order below, 33 and 40 phonemes fit the 1024-frame
+# first bucket and 42 and 58 do not, so only the second replica overflows
+MESH_DURATION_BIAS = 3.1
+MESH_OVERFLOW_TEXTS = [TEXTS[3], TEXTS[0], TEXTS[1], TEXTS[2]]
+
+
+@contextlib.contextmanager
+def replica_calls(split, name: str):
+    """Record the positional arguments of every call of each replica's
+    `name` method while the block runs: [[args, ...] of each replica]."""
+    calls = [[] for _ in split.replicas]
+    for r, rep in enumerate(split.replicas):
+        def call(*args, _real=getattr(rep, name), _r=r):
+            calls[_r].append(args)
+            return _real(*args)
+        setattr(rep, name, call)
+    try:
+        yield calls
+    finally:
+        for rep in split.replicas:
+            delattr(rep, name)
+
+
+def synced(devices) -> None:
+    import torch
+
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def replica_bits(split, single, texts, wavs, bucket):
+    """For each replica: whether its returned rows are the bits of
+    single.synthesize_batch(its rows, max_frames=bucket)."""
+    d = len(split.replicas)
+    padded = list(texts) + [texts[-1]] * (-len(texts) % d)
+    per = len(padded) // d
+    out = []
+    for r in range(d):
+        rows = padded[r * per:(r + 1) * per]
+        got = wavs[r * per:(r + 1) * per]  # the padding rows are not returned
+        want = single.synthesize_batch(rows, max_frames=bucket)[:len(got)]
+        out.append(all(a.shape == b.shape and (a == b).all() for a, b in zip(got, want)))
+    return out
+
+
+def mesh_leg(pipe, slow, devices, smi):
+    """One card list: per-replica bits, one frame bucket, the other entry
+    points, the batcher, warm times, launches."""
+    import numpy as np
+    import torch
+
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import TTSPipeline, build_pipeline_from_random_init
+    from sambert_hifigan_tpu_torch.serving import DynamicBatcher
+
+    bad = []
+    split = build_pipeline_from_random_init(pipe.cfg, seed=0, devices=devices)
+    d = len(split.replicas)
+    row = dict(devices=[str(x) for x in split.devices], replicas=d)
+
+    # the batch of the main path: lengths, each replica's bits, the B = 4 call
+    totals, want = expected_samples(pipe, TEXTS)
+    bucket = batch_frame_bucket(pipe, TEXTS, totals)
+    wavs = split.synthesize_batch(TEXTS)
+    ref = pipe.synthesize_batch(TEXTS)
+    lengths = [len(w) for w in wavs]
+    row["batch"] = dict(frame_bucket=bucket, lengths=lengths, want=want,
+                        replica_bit_equal=replica_bits(split, pipe, TEXTS, wavs, bucket),
+                        max_abs_vs_b4=max(float(np.abs(a - b).max()) for a, b in zip(wavs, ref)
+                                          if a.shape == b.shape))
+    if lengths != want or lengths != [len(w) for w in ref]:
+        bad.append(f"lengths {lengths}, want {want}, pipe's {[len(w) for w in ref]}")
+    if not all(row["batch"]["replica_bit_equal"]):
+        bad.append(f"replica rows against direct calls: {row['batch']['replica_bit_equal']}")
+    if not all(np.isfinite(w).all() for w in wavs):
+        bad.append("non-finite samples")
+    if row["batch"]["max_abs_vs_b4"] > MESH_TOL_MAX:
+        bad.append(f"max |diff| against pipe's B = 4 call {row['batch']['max_abs_vs_b4']} "
+                   f"> {MESH_TOL_MAX}")
+
+    # one frame bucket: only the last replica's rows overflow the first one
+    slow_split = TTSPipeline(slow.cfg, slow.acoustic.state_dict(), slow.generator.state_dict(),
+                             devices=devices)
+    texts = MESH_OVERFLOW_TEXTS
+    padded = texts + [texts[-1]] * (-len(texts) % d)
+    per = len(padded) // d
+    full = slow.text_to_mel(padded, max_frames=max(slow.cfg.runtime.frame_buckets))
+    totals_b = full.total_frames.cpu().tolist()
+    first = slow._initial_bucket(slow._features(texts)[0], 1.0)
+    second = batch_frame_bucket(slow, texts, totals_b)
+    with replica_calls(slow_split, "_acoustic") as calls:
+        wavs_b = slow_split.synthesize_batch(texts)
+    ref_b = slow.synthesize_batch(texts)
+    row["one_bucket"] = dict(
+        totals=totals_b, first_bucket=first, new_bucket=second,
+        replica_buckets=[[c[1] for c in cs] for cs in calls],
+        lengths=[len(w) for w in wavs_b], pipe_lengths=[len(w) for w in ref_b],
+        replica_bit_equal=replica_bits(slow_split, slow, texts, wavs_b, second))
+    if not (max(totals_b[:per]) <= first < max(totals_b[-per:])):
+        bad.append(f"overflow batch: totals {totals_b} do not overflow {first} in the last "
+                   "replica only")
+    if row["one_bucket"]["replica_buckets"] != [[first, second]] * d:
+        bad.append(f"replica buckets {row['one_bucket']['replica_buckets']}, want "
+                   f"{[[first, second]] * d}")
+    if row["one_bucket"]["lengths"] != row["one_bucket"]["pipe_lengths"]:
+        bad.append(f"overflow batch lengths {row['one_bucket']}")
+    if not all(row["one_bucket"]["replica_bit_equal"]):
+        bad.append(f"overflow batch rows against direct calls: {row['one_bucket']}")
+
+    # text_to_mel: the padded row count, pipe's totals
+    mel_out = split.text_to_mel(TEXTS[:3])
+    padded_rows = 3 + (-3 % d)
+    got_totals = mel_out.total_frames.cpu().tolist()
+    pipe_totals = pipe.text_to_mel(TEXTS[:3]).total_frames.cpu().tolist()
+    row["text_to_mel"] = dict(rows=mel_out.mel_pred.shape[0], want_rows=padded_rows,
+                              totals=got_totals, pipe_totals=pipe_totals,
+                              device=str(mel_out.mel_pred.device))
+    if (mel_out.mel_pred.shape[0] != padded_rows or got_totals[:3] != pipe_totals
+            or mel_out.mel_pred.device != split.device):
+        bad.append(f"text_to_mel: {row['text_to_mel']}")
+
+    # vocode: 2 rows a replica (split), then one row fewer (devices[0])
+    mel = pipe.text_to_mel(TEXTS).mel_pred
+    mel = mel[torch.arange(2 * d) % mel.shape[0]]
+    with replica_calls(split, "_vocode") as calls:
+        wav = split.vocode(mel)
+    divisible = [bool(torch.equal(wav[2 * r:2 * r + 2], pipe.vocode(mel[2 * r:2 * r + 2])))
+                 for r in range(d)]
+    ran = [len(c) for c in calls]
+    with replica_calls(split, "_vocode") as calls:
+        wav_nd = split.vocode(mel[:-1])
+    row["vocode"] = dict(rows=[2 * d, 2 * d - 1], replica_bit_equal=divisible,
+                         replica_calls=[ran, [len(c) for c in calls]],
+                         undivided_bit_equal=bool(torch.equal(wav_nd, pipe.vocode(mel[:-1]))),
+                         device=str(wav.device))
+    if not all(divisible) or ran != [1] * d or wav.device != split.device:
+        bad.append(f"vocode of {2 * d} rows: {row['vocode']}")
+    if not row["vocode"]["undivided_bit_equal"] or row["vocode"]["replica_calls"][1] != \
+            [1] + [0] * (d - 1):
+        bad.append(f"vocode of {2 * d - 1} rows: {row['vocode']}")
+
+    # stream: unsplit on devices[0], pipe's bits
+    got = list(split.stream(TEXTS[0], chunk_frames=CHUNK, context_frames=CONTEXT))
+    ref_s = list(pipe.stream(TEXTS[0], chunk_frames=CHUNK, context_frames=CONTEXT))
+    row["stream"] = dict(chunks=len(got), bit_equal=len(got) == len(ref_s) and all(
+        a.shape == b.shape and (a == b).all() for a, b in zip(got, ref_s)))
+    if not row["stream"]["bit_equal"]:
+        bad.append(f"stream against pipe.stream: {row['stream']}")
+
+    # warmup: every leg on every replica
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    with replica_calls(split, "_acoustic") as calls:
+        split.warmup(max_frames=1024, batch_buckets=True)
+    synced(split.devices)
+    legs = len(pipe.cfg.runtime.phoneme_buckets) + len(pipe.cfg.runtime.batch_buckets)
+    row["warmup"] = dict(s=time.perf_counter() - t0, replica_calls=[len(c) for c in calls],
+                         launches={"ar_decode": k1.launches, "mrf": k2.launches})
+    if row["warmup"]["replica_calls"] != [legs] * d:
+        bad.append(f"warmup: {row['warmup']}, want {legs} acoustic passes on each replica")
+
+    # the batcher: the 4 texts as concurrent requests
+    batcher = DynamicBatcher(split, max_batch=4, max_wait_ms=50)
+    results = [None] * len(TEXTS)
+    go = threading.Barrier(len(TEXTS))
+
+    def client(i):
+        go.wait()
+        try:
+            results[i] = len(batcher.synthesize(TEXTS[i], timeout=300))
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = repr(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(TEXTS))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        batcher.close()
+    row["batcher"] = dict(lengths=results, want=want, **{
+        k: v for k, v in batcher.stats().items() if k in ("batches_run", "requests_served")})
+    if results != want:
+        bad.append(f"the batcher over the split pipeline: {row['batcher']}")
+
+    # warm ms in turns, each call ending in a synchronize of every card
+    def timed(tts):
+        t0 = time.perf_counter()
+        tts.synthesize_batch(TEXTS)
+        synced(split.devices)
+        return (time.perf_counter() - t0) * 1e3
+
+    ms = {"split": [], "single": []}
+    for i in range(MESH_WARM + MESH_REPS):
+        for name, tts in (("split", split), ("single", pipe))[::1 if i % 2 else -1]:
+            ms[name].append(timed(tts))
+    row["warm_ms"] = {k: median(v[MESH_WARM:]) for k, v in ms.items()}
+
+    # the launches of one split synthesize_batch
+    synced(split.devices)
+    k1.launches = k2.launches = 0
+    split.synthesize_batch(TEXTS)
+    synced(split.devices)
+    row["launches"] = {"ar_decode": k1.launches, "mrf": k2.launches}
+    if row["launches"] != {"ar_decode": d, "mrf": len(split.mrf_weights) * d}:
+        bad.append(f"launches of one split synthesize_batch: {row['launches']}, want "
+                   f"{d} and {len(split.mrf_weights) * d}")
+    share = ("replicas share one card and its stream: a correctness leg, not scaling"
+             if len(set(devices)) < d else "one replica a card")
+    log(f"[mesh] devices {row['devices']} ({share}); {smi}:", json.dumps(row))
+    if bad:
+        raise AssertionError(f"phase 13 on {devices}:\n" + "\n".join(bad))
+    return row
+
+
+def phase_mesh(pipe, dev):
+    """Data-parallel serving, `TTSPipeline(devices=...)`, the counterpart of
+    the JAX pipeline's `mesh=`: the default config at full width and depth
+    with `pipe`'s weights (seed 0), the four TEXTS.  The card lists: two
+    replicas on the one card (["cuda:0", "cuda:0"]), then every visible card
+    where there are more than one.  Each list: the batch's lengths equal
+    `pipe`'s and each replica's rows bit-equal to a direct call on those
+    rows at the batch's frame bucket, the max |diff| against `pipe`'s B = 4
+    call within MESH_TOL_MAX; a batch whose last replica alone overflows the
+    first frame bucket (MESH_DURATION_BIAS), every replica re-run at the one
+    new bucket; `text_to_mel` (the padded row count, `pipe`'s totals);
+    `vocode` at a row count the replicas divide and one they do not;
+    `stream` bit-equal to `pipe.stream`; `warmup(max_frames=1024,
+    batch_buckets=True)` on every replica; a DynamicBatcher answering the
+    four texts as concurrent requests; warm ms of the split and the single
+    call in turns, median of 5 after 2; the launches of one split call."""
+    import torch
+
+    from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
+    from sambert_hifigan_tpu_torch.weights import random_acoustic_model, random_generator
+
+    t_phase = time.perf_counter()
+    cfg = pipe.cfg
+    gen = torch.Generator().manual_seed(0)
+    acoustic = random_acoustic_model(cfg, gen).state_dict()
+    generator = random_generator(cfg, gen).state_dict()
+    lin = "variance_adaptor.duration_predictor.linear."
+    acoustic[lin + "bias"] = torch.full_like(acoustic[lin + "bias"], MESH_DURATION_BIAS)
+    acoustic[lin + "weight"] = acoustic[lin + "weight"] * 0.1
+    slow = TTSPipeline(cfg, acoustic, generator, device=dev)
+    card_lists = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        card_lists.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    smi = nvidia_smi_line()
+    row = {"legs": [mesh_leg(pipe, slow, devices, smi) for devices in card_lists]}
+    row["launches"] = row["legs"][0]["launches"]
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 13 took {row['phase_s']:.1f} s over the card lists "
+        f"{[leg['devices'] for leg in row['legs']]}")
+    if row["phase_s"] > MESH_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 13 took {row['phase_s']:.1f} s (limit {MESH_PHASE_LIMIT_S})")
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -2097,6 +2380,7 @@ def main() -> int:
     dp_row = phase_dp(pipe, dev)
     tools_row = phase_tools(pipe, dev)
     tp_row = phase_tp(pipe, dev)
+    mesh_row = phase_mesh(pipe, dev)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -2111,6 +2395,7 @@ def main() -> int:
          "launches_dp_train": dp_row["launches"]["ar_decode"],
          "launches_tools": tools_row["launches"]["ar_decode"],
          "launches_tp_train": tp_row["launches"]["ar_decode"],
+         "launches_mesh": mesh_row["launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2125,6 +2410,7 @@ def main() -> int:
          "launches_dp_train": dp_row["launches"]["mrf"],
          "launches_tools": tools_row["launches"]["mrf"],
          "launches_tp_train": tp_row["launches"]["mrf"],
+         "launches_mesh": mesh_row["launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -2150,7 +2436,9 @@ def main() -> int:
         "plot pipelines; eval_demo_run over 8 utterances; the demos and the dryrun none); "
         "launches_tp_train: phase 12's (the tensor-parallel train steps in processes of their "
         "own, none; then one synthesize_batch of 2 texts from the --model-parallel torchrun "
-        "checkpoints and the text_to_mel that gives their lengths; the dryrun none)")
+        "checkpoints and the text_to_mel that gives their lengths; the dryrun none); "
+        "launches_mesh: phase 13's, one synthesize_batch of the 4 texts split over two "
+        "replicas on cuda:0 (one K1 launch and a vocode of four K2 launches a replica)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,12 @@ The pipeline runs on the card unless it is given device="cpu"; on the CPU
 the kernels' plain versions run with f32 weights (the reference numerics).
 The plain-PyTorch layers around the kernels run in IEEE f32 on the card too:
 TF32 is off for matmuls and cuDNN convolutions while the pipeline computes.
+
+Data-parallel serving (`devices=[...]`, the JAX package's `mesh=`): one
+replica of the weights per device, the batch padded to a multiple of the
+device count and split into contiguous rows, one frame bucket and at most
+one overflow re-run for the whole batch; `stream` runs unsplit on the first
+device.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from .kernels import kernel_dtype, resolve_device
 from .models.acoustic_model import AcousticOutput, SAMBERTAcousticModel, acoustic_inference
 from .models.ar_decoder import ar_decode_chunk, decode_memory, init_packed_carry, pack_decoder
 from .models.hifigan import HiFiGANGenerator
+from .parallel.mesh import shard_rows
 from .text.frontend import FrontEnd, pick_bucket
 from .weights import random_acoustic_model, random_generator
 
@@ -57,13 +64,49 @@ def _ieee_f32():
         matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
+def resolve_devices(device=None, devices=None) -> List[torch.device]:
+    """The pipeline's device list: `[resolve_device(device)]` without
+    `devices`; otherwise `devices` with each bare "cuda" resolved to the
+    current card's index (a tensor's device always carries one, and the
+    kernels compare devices).  Raises ValueError on an empty list, a list
+    that mixes device types, or a `device` other than `devices[0]`."""
+    if devices is None:
+        return [resolve_device(device)]
+
+    def indexed(dev) -> torch.device:
+        dev = torch.device(dev)
+        return torch.device("cuda", torch.cuda.current_device()) \
+            if dev.type == "cuda" and dev.index is None else dev
+
+    devs = [indexed(d) for d in devices]
+    if not devs:
+        raise ValueError("devices: the list is empty")
+    types = sorted({d.type for d in devs})
+    if len(types) > 1:
+        raise ValueError(f"devices: every entry must be of one type, got {types}")
+    if device is not None and indexed(device) != devs[0]:
+        raise ValueError(f"device {device} disagrees with devices[0] {devs[0]}")
+    return devs
+
+
 class TTSPipeline:
     """Text -> wav.  `acoustic_state` / `generator_state` are the port's
-    state_dicts (weights.py carries them over from the JAX package)."""
+    state_dicts (weights.py carries them over from the JAX package).
 
-    def __init__(self, cfg: TTSConfig, acoustic_state, generator_state, device=None):
+    `devices`, a list of torch devices, serves batches data-parallel, as the
+    JAX pipeline's `mesh` does over its 'data' axis: each entry gets its own
+    replica (acoustic model, generator, K1's and K2's packed weights) on its
+    device, `devices[0]` is `self.device`, and `stream` and the calls that do
+    not split run there.  An entry may repeat: the CPU is one torch device,
+    so a CPU pipeline over d replicas is `["cpu"] * d`, and two replicas on
+    one card run the split path where there is one card.  `devices=None` is
+    the single-device pipeline."""
+
+    def __init__(self, cfg: TTSConfig, acoustic_state, generator_state, device=None,
+                 devices=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device, devices)
+        self.device = self.devices[0]
         self.acoustic = SAMBERTAcousticModel(cfg.acoustic_model)
         self.acoustic.load_state_dict(acoustic_state)
         self.acoustic.to(self.device).eval()
@@ -77,18 +120,33 @@ class TTSPipeline:
         fe = cfg.acoustic_model.frontend
         self.frontend = FrontEnd(fe.vocab_size, fe.tone_size, fe.boundary_size)
         self.hop = cfg.audio.hop_length
+        # one replica per entry of `devices`, this pipeline the first
+        self.replicas = [self] + [TTSPipeline(cfg, acoustic_state, generator_state, device=dev)
+                                  for dev in self.devices[1:]]
 
-    def _frontend_args(self, texts):
-        """Bucket-padded frontend features as device tensors."""
+    def _features(self, texts):
+        """Bucket-padded frontend features on the host: (tph, arrays)."""
         feat = self.frontend.batch_forward(texts)
         tph = pick_bucket(feat.ph_ids.shape[1], self.cfg.runtime.phoneme_buckets)
         feat = self.frontend.batch_forward(texts, pad_to=tph)
-        args = tuple(
-            torch.from_numpy(a).to(self.device)
-            for a in (feat.ph_ids.astype(np.int64), feat.tone_ids.astype(np.int64),
-                      feat.boundary_ids.astype(np.int64), feat.phoneme_mask)
-        )
-        return tph, args
+        return tph, (feat.ph_ids.astype(np.int64), feat.tone_ids.astype(np.int64),
+                     feat.boundary_ids.astype(np.int64), feat.phoneme_mask)
+
+    def _frontend_args(self, texts):
+        """Bucket-padded frontend features as tensors on `self.device`."""
+        tph, feats = self._features(texts)
+        return tph, tuple(torch.from_numpy(a).to(self.device) for a in feats)
+
+    def _split_args(self, texts):
+        """The texts padded to a multiple of the replica count (repeating the
+        last text), the front end run once for the whole batch (one phoneme
+        bucket), and each replica's contiguous rows on its device: (tph,
+        [args of each replica])."""
+        d = len(self.replicas)
+        texts = list(texts) + [texts[-1]] * (-len(texts) % d)
+        tph, feats = self._features(texts)
+        return tph, [tuple(torch.from_numpy(shard_rows(a, d, r)).to(rep.device) for a in feats)
+                     for r, rep in enumerate(self.replicas)]
 
     def _initial_bucket(self, tph: int, duration_scale: float) -> int:
         """~12 frames per phoneme scaled by the duration control, clamped into
@@ -113,6 +171,30 @@ class TTSPipeline:
                 phoneme_mask=pmask, duration_scale=duration_scale,
                 pitch_shift=pitch_shift, energy_scale=energy_scale,
             )
+
+    def _dispatch(self, parts, max_frames, controls, vocode: bool):
+        """Enqueue every replica's acoustic pass (and vocode) on its own
+        device before anything is copied to the host, so the devices run
+        together: [(AcousticOutput, wav or None)] in replica order."""
+        outs = []
+        with _ieee_f32():
+            for rep, args in zip(self.replicas, parts):
+                out = rep._acoustic(args, max_frames, *controls)
+                outs.append((out, rep._vocode(out.mel_pred) if vocode else None))
+        return outs
+
+    def _gather(self, outs) -> AcousticOutput:
+        """The replicas' AcousticOutputs as one, in row order on `self.device`."""
+        if len(outs) == 1:
+            return outs[0]
+
+        def cat(ts):
+            return torch.cat([t.to(self.device) for t in ts])
+
+        return AcousticOutput(
+            cat(o.mel_pred for o in outs), cat(o.frame_mask for o in outs),
+            cat(o.total_frames for o in outs),
+            {k: cat(o.predictions[k] for o in outs) for k in outs[0].predictions})
 
     @staticmethod
     def _warn_truncated(need: int, max_frames: int) -> None:
@@ -140,7 +222,10 @@ class TTSPipeline:
         synthesize_batch at every runtime.batch_buckets size at the smallest
         text bucket.  Nothing in the port compiles per shape, so unlike the
         JAX package's warmup this one has no decode-chunk graph to warm for
-        every frame bucket."""
+        every frame bucket.  Over several devices every leg runs on each of
+        them (text_to_mel, vocode and synthesize_batch split), so that a
+        card's first launch falls here; the stream legs run on devices[0],
+        where `stream` runs."""
         if self.device.type == "cuda":
             kernels.build_all()
         frame_buckets = [max_frames] if max_frames else list(self.cfg.runtime.frame_buckets)
@@ -172,26 +257,45 @@ class TTSPipeline:
         energy_scale: float = 1.0,
         max_frames: Optional[int] = None,
     ) -> AcousticOutput:
-        tph, args = self._frontend_args(texts)
+        """texts -> AcousticOutput on `self.device`.  Over d devices the rows
+        are the texts padded to a multiple of d, as the JAX mesh returns them
+        (callers slice)."""
+        tph, parts = self._split_args(texts)
         controls = (duration_scale, pitch_shift, energy_scale)
+
+        def run(frames):
+            return [out for out, _ in self._dispatch(parts, frames, controls, vocode=False)]
+
         if max_frames is not None:  # caller pinned the bucket
-            return self._acoustic(args, max_frames, *controls)
+            return self._gather(run(max_frames))
         buckets = self.cfg.runtime.frame_buckets
         max_frames = self._initial_bucket(tph, duration_scale)
-        out = self._acoustic(args, max_frames, *controls)
-        need = int(out.total_frames.max())
+        outs = run(max_frames)
+        need = max(int(o.total_frames.max()) for o in outs)
         if need > max_frames and max_frames < max(buckets):
             max_frames = pick_bucket(min(need, max(buckets)), buckets)
-            out = self._acoustic(args, max_frames, *controls)
-            need = int(out.total_frames.max())
+            outs = run(max_frames)
+            need = max(int(o.total_frames.max()) for o in outs)
         self._warn_truncated(need, max_frames)
-        return out
+        return self._gather(outs)
+
+    def _vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
+        """This replica's vocoder on its own device."""
+        with _ieee_f32():
+            return self.generator(mel_btc.transpose(1, 2), self.mrf_weights)
 
     @torch.no_grad()
     def vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
-        """mel [B, T, n_mels] -> wav [B, 1, T * hop]."""
+        """mel [B, T, n_mels] -> wav [B, 1, T * hop] on `self.device`.  Over
+        d devices the rows are split over the replicas when d divides B (as
+        the JAX mesh shards the mel), else they all run on devices[0]."""
+        d = len(self.replicas)
+        if d == 1 or mel_btc.shape[0] % d:
+            return self._vocode(mel_btc.to(self.device))
         with _ieee_f32():
-            return self.generator(mel_btc.transpose(1, 2), self.mrf_weights)
+            wavs = [rep._vocode(shard_rows(mel_btc, d, r).to(rep.device))
+                    for r, rep in enumerate(self.replicas)]
+        return torch.cat([w.to(self.device) for w in wavs])
 
     def synthesize(
         self,
@@ -220,24 +324,29 @@ class TTSPipeline:
         frame bucket (or the caller-pinned `max_frames`), then the wavs and
         totals come back together.  Only a bucket overflow pays a second
         pass.  The batch is padded (repeating the last text) up to the next
-        runtime.batch_buckets size; outputs are sliced back to len(texts)."""
+        runtime.batch_buckets size; outputs are sliced back to len(texts).
+
+        Over d devices the padded batch is padded again to a multiple of d
+        and split; every replica is enqueued before the first copy, and the
+        whole batch shares one frame bucket and one overflow decision (the
+        largest total of any row), as the JAX mesh's one program does."""
         n = len(texts)
         bb = self.cfg.runtime.batch_buckets
         if bb and n < max(bb):
             texts = list(texts) + [texts[-1]] * (pick_bucket(n, bb) - n)
-        tph, args = self._frontend_args(texts)
+        tph, parts = self._split_args(texts)
+        controls = (duration_scale, pitch_shift, energy_scale)
         buckets = self.cfg.runtime.frame_buckets
         if max_frames is not None:  # caller pinned the bucket: never re-run
             buckets = (max_frames,)
         else:
             max_frames = self._initial_bucket(tph, duration_scale)
         for _ in range(2):  # optimistic pass + at most one overflow re-run
-            out = self._acoustic(args, max_frames, duration_scale, pitch_shift, energy_scale)
-            wav = self.vocode(out.mel_pred)
-            # the wav copy waits for the device; the totals copy then finds
-            # the stream drained
-            wav_np = wav.cpu().numpy()
-            totals = out.total_frames.cpu().numpy()
+            outs = self._dispatch(parts, max_frames, controls, vocode=True)
+            # each wav copy waits for its own device only, and every device's
+            # work is already enqueued; the totals copies then find them drained
+            wav_np = np.concatenate([wav.cpu().numpy() for _, wav in outs])
+            totals = np.concatenate([out.total_frames.cpu().numpy() for out, _ in outs])
             need = int(totals.max())
             if need <= max_frames or max_frames >= max(buckets):
                 break
@@ -342,7 +451,7 @@ class _StreamRun:
         seg = F.pad(seg, (0, 0, 0, n - seg.shape[1]))
         idx = lo + torch.arange(n, device=seg.device)
         seg = seg * (idx < self.total_dev).to(seg.dtype)[None, :, None]
-        wav = self.pipe.vocode(seg)
+        wav = self.pipe._vocode(seg)
         s = (start - lo) * self.hop
         return wav[0, 0, s:s + self.chunk * self.hop]
 
@@ -361,32 +470,34 @@ class _StreamRun:
         return self._window_device(start)
 
 
-def build_pipeline_from_random_init(cfg: TTSConfig, seed: int = 0, device=None) -> TTSPipeline:
+def build_pipeline_from_random_init(cfg: TTSConfig, seed: int = 0, device=None,
+                                    devices=None) -> TTSPipeline:
     """Random-weight pipeline from a seed (benchmarks and smoke runs)."""
-    device = resolve_device(device)
+    resolve_devices(device, devices)  # refuse a bad device before making weights
     gen = torch.Generator().manual_seed(seed)
     acoustic = random_acoustic_model(cfg, gen)
     generator = random_generator(cfg, gen)
-    return TTSPipeline(cfg, acoustic.state_dict(), generator.state_dict(), device=device)
+    return TTSPipeline(cfg, acoustic.state_dict(), generator.state_dict(), device=device,
+                       devices=devices)
 
 
 def build_pipeline(cfg: TTSConfig, seed: int = 0, device=None,
                    acoustic_checkpoint: Optional[str] = None,
-                   vocoder_checkpoint: Optional[str] = None) -> TTSPipeline:
+                   vocoder_checkpoint: Optional[str] = None, devices=None) -> TTSPipeline:
     """A pipeline over the latest checkpoint of each training directory
     given (`train_acoustic`, `train_vocoder`), its EMA copy where it has
     one; without either, the random-weight pipeline of `seed`, and a model
     without a checkpoint beside one that has one gets random weights from
     `seed`.  The decoder is packed for K1 and the MRFs for K2 from the
     loaded weights.  Refuses a checkpoint trained under another mel
-    configuration."""
+    configuration.  `devices` as in TTSPipeline."""
     from .training.acoustic_trainer import acoustic_params_from_tree
     from .training.checkpoint import CheckpointManager
     from .training.vocoder_trainer import generator_params_from_tree
 
     if not (acoustic_checkpoint or vocoder_checkpoint):
-        return build_pipeline_from_random_init(cfg, seed, device)
-    device = resolve_device(device)
+        return build_pipeline_from_random_init(cfg, seed, device, devices)
+    resolve_devices(device, devices)  # refuse a bad device before loading
     if acoustic_checkpoint:
         tree, _ = CheckpointManager(acoustic_checkpoint, cfg.audio).restore_tree()
         acoustic = acoustic_params_from_tree(tree)
@@ -397,4 +508,4 @@ def build_pipeline(cfg: TTSConfig, seed: int = 0, device=None,
         generator = generator_params_from_tree(tree)
     else:
         generator = random_generator(cfg, torch.Generator().manual_seed(seed)).state_dict()
-    return TTSPipeline(cfg, acoustic, generator, device=device)
+    return TTSPipeline(cfg, acoustic, generator, device=device, devices=devices)

@@ -21,7 +21,9 @@
 
 Threading model: callers submit from any thread and block on a per-request
 event (batch) or a per-request chunk queue (stream); ONE worker thread calls
-the pipeline, so one thread feeds the card.  PyTorch's grad mode is per
+the pipeline, so one thread feeds the card.  A pipeline over several cards
+(`TTSPipeline(devices=...)`) splits each fused batch over them itself, from
+this same thread.  PyTorch's grad mode is per
 thread: the pipeline's entry points turn it off themselves, so the worker's
 outputs never carry autograd state.
 """

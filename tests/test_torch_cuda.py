@@ -436,3 +436,92 @@ def test_trained_decoder_through_k1_matches_plain(cuda_device):
     err = (out - ref).abs()
     assert bool(torch.isfinite(out).all())
     assert err.mean() < 1e-2 and err.max() < 0.1, (err.mean(), err.max())
+
+
+# ---- data-parallel serving: a pipeline over several replicas -----------------------
+
+SERVE_TEXTS = ["你好", "今天天气", "abc", "山水"]
+
+
+def _serving_pipe(devices):
+    """The default generator (K2's widths) behind a small acoustic model (d
+    32, 2 + 2 layers: K1's generic path), random weights from seed 0."""
+    import dataclasses
+
+    from sambert_hifigan_tpu_torch import config as c
+    from sambert_hifigan_tpu_torch.pipeline import build_pipeline_from_random_init
+
+    cfg = c.default_config()
+    am = dataclasses.replace(
+        cfg.acoustic_model, d_model=D, encoder=c.EncoderConfig(n_layers=2, n_heads=4, d_ff=64),
+        decoder=c.DecoderConfig(n_layers=2, n_heads=4, d_ff=64, max_len=256))
+    cfg = dataclasses.replace(cfg, acoustic_model=am, runtime=c.RuntimeConfig(
+        phoneme_buckets=(8, 16), frame_buckets=(128, 256)))
+    return build_pipeline_from_random_init(cfg, seed=0, devices=devices)
+
+
+def _replica_rows_match_direct_calls(devices):
+    """One split synthesize_batch of 4 texts (2 rows a replica): one K1
+    launch and 4 K2 launches a replica, each replica's rows the bits of a
+    single-device call on cuda:0 at the batch's frame bucket and B."""
+    split = _serving_pipe(devices)
+    single = _serving_pipe(["cuda:0"])
+    before = k1.launches, k2.launches
+    wavs = split.synthesize_batch(SERVE_TEXTS)
+    for dev in split.devices:
+        torch.cuda.synchronize(dev)
+    assert k1.launches - before[0] == 2
+    assert k2.launches - before[1] == 2 * len(split.mrf_weights)
+    bucket = split._initial_bucket(split._features(SERVE_TEXTS)[0], 1.0)
+    for r in range(2):
+        rows = SERVE_TEXTS[2 * r:2 * r + 2]
+        direct = single.synthesize_batch(rows, max_frames=bucket)
+        for got, want in zip(wavs[2 * r:2 * r + 2], direct):
+            assert got.size > 0 and np.isfinite(got).all()
+            np.testing.assert_array_equal(got, want)
+    assert [len(w) for w in wavs] == [len(w) for w in single.synthesize_batch(SERVE_TEXTS)]
+    return split
+
+
+def test_two_replicas_on_one_card_match_direct_calls(cuda_device):
+    split = _replica_rows_match_direct_calls(["cuda:0", "cuda:0"])
+    assert split.devices == [torch.device("cuda", 0)] * 2
+
+
+def _moved(weights, dev):
+    """A packed-weights NamedTuple with every tensor (and tensor tuple) on dev."""
+    def move(f):
+        if isinstance(f, torch.Tensor):
+            return f.to(dev)
+        if isinstance(f, tuple) and f and isinstance(f[0], torch.Tensor):
+            return tuple(t.to(dev) for t in f)
+        return f
+
+    return type(weights)(*[move(f) for f in weights])
+
+
+def test_kernels_launch_on_a_second_card(cuda_device):
+    """K1 and K2 launched on cuda:1 (while cuda:0 is the current card) give
+    the bits of the same launch on cuda:0, and a pipeline over both cards
+    gives each replica's rows the bits of direct calls."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev0, dev1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert torch.cuda.current_device() == 0
+    w, mk, mv, bias = _full_width_inputs(dev0, 4, 300, 2)
+    before = k1.launches
+    one = k1.ar_decode(w, mk, mv, bias, 300)
+    two = k1.ar_decode(_moved(w, dev1), mk.to(dev1), mv.to(dev1), bias.to(dev1), 300)
+    assert two.device == dev1 and k1.launches == before + 2
+    assert torch.equal(one, two.to(dev0))
+
+    wm = k2.pack_mrf(_mrf(128, dev0), torch.bfloat16)
+    x = torch.from_numpy(_np(61, 2, 128, 1000)).to(dev0)
+    before = k2.launches
+    one = k2.mrf(x, wm)
+    two = k2.mrf(x.to(dev1), _moved(wm, dev1))
+    assert two.device == dev1 and k2.launches == before + 2
+    assert torch.equal(one, two.to(dev0))
+
+    split = _replica_rows_match_direct_calls(["cuda:0", "cuda:1"])
+    assert [r.decode_weights.stream.device for r in split.replicas] == [dev0, dev1]
