@@ -65,8 +65,16 @@ width with the main path's weights split over two replicas on the one card
 bit-equal to a direct call on them, one frame bucket for a batch whose last
 replica alone overflows, `text_to_mel`, `vocode`, `stream`, `warmup` and a
 `DynamicBatcher` over the split pipeline, warm ms against one device, and
-the launches of one split call.  Any failed phase raises and the script
-exits non-zero.  It imports nothing of JAX.
+the launches of one split call.  Phase 14 runs bf16 inference
+(`TTSPipeline(dtype=torch.bfloat16)`, the JAX `dtype=jnp.bfloat16`) on the
+main path's weights: `synthesize_batch` and `stream` through K1 and K2
+(launches, lengths, the stream against `synthesize`), each wav against the
+f32 pipeline's within a bound PERF.md predicted, warm ms of both in turns,
+K1 and K2 at the bf16 path's inputs against their plain versions (chained
+K1 bit for bit), then `python -m sambert_hifigan_tpu_torch.bench` with
+reduced repetitions in a process of its own (every key of its JSON line
+present and finite, RTF below 1, K1 and K2 launched).  Any failed phase
+raises and the script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
 kernel's launches, error and times, and the card's name and power limit as
@@ -2324,6 +2332,251 @@ def phase_mesh(pipe, dev):
     return row
 
 
+# ---- phase 14: bf16 inference and the benchmark -----------------------------
+
+BF16_PHASE_LIMIT_S = 180.0  # a hung phase fails; the aim is under 90 s
+# the bf16 pipeline's wav against the f32 pipeline's on the same weights, max
+# |diff| of each row: the bound PERF.md predicted before the first run (the
+# CPU's plain versions at full width, f32 pipeline over bf16 kernel weights,
+# gave 1.3e-3 to 2.4e-3, equal durations)
+BF16_VS_F32_MAX = 1e-2
+BENCH_TIMEOUT_S = 300
+BENCH_ARGS = ("--reps", "2")
+# the root bench.py's keys, which the port's line keeps
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "vs_repo_target",
+              "decode_b16_frames_per_s", "decode_b16_vs_2x_b8", "stream_ttfb_ms",
+              "train_acoustic_steps_per_s", "train_acoustic_mfu", "train_vocoder_steps_per_s",
+              "train_vocoder_mfu")
+
+
+def mrf_inputs(tts, mel):
+    """Each MRF's input and weights as tts.vocode(mel) hands them to K2's
+    wrapper: [(x, weights)] in stage order."""
+    from sambert_hifigan_tpu_torch.models import hifigan
+
+    seen, real = [], hifigan.mrf
+
+    def record(x, w):
+        seen.append((x.clone(), w))
+        return real(x, w)
+
+    hifigan.mrf = record
+    try:
+        tts.vocode(mel)
+    finally:
+        hifigan.mrf = real
+    return seen
+
+
+def bf16_kernels(bf):
+    """K1 and K2 at the bf16 path's own inputs against their plain versions,
+    at phases 2 and 3's tolerances: K1 on the memory K/V of the four texts'
+    bf16 encode (and chained in chunks, bit for bit), K2 on each MRF's input
+    in the bf16 vocode of their bf16 mel."""
+    import torch
+
+    from sambert_hifigan_tpu_torch.models.ar_decoder import decode_memory
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+
+    totals, _ = expected_samples(bf, TEXTS)
+    t = batch_frame_bucket(bf, TEXTS, totals)
+    _, args = bf._frontend_args(TEXTS)
+    w = bf.decode_weights
+    with torch.no_grad():
+        va = bf._encode(args, t, 1.0, 0.0, 1.0)
+        memory = decode_memory(bf.acoustic.ar_decoder, va.hvar, ~va.frame_mask, w)
+    out = k1.ar_decode(w, *memory, t)
+    t0 = time.perf_counter()
+    ref = k1.ar_decode_plain(w, *memory, k1.init_carry(w, out.shape[0], t), 0, t)[1]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out - ref).abs()
+    k1_row = dict(B=out.shape[0], T=t, hvar_dtype=str(va.hvar.dtype),
+                  memory_dtype=str(memory.mem_k.dtype), max_abs_err=err.max().item(),
+                  mean_abs_err=err.mean().item(), ms=cuda_ms(lambda: k1.ar_decode(w, *memory, t),
+                                                             reps=2),
+                  plain_ms=plain_ms,
+                  chained_bit_equal=bool(torch.equal(k1_chain(w, *memory, t, CHUNK), out)))
+    bad = []
+    if not (torch.isfinite(out).all() and k1_row["mean_abs_err"] < K1_TOL_MEAN
+            and k1_row["max_abs_err"] < K1_TOL_MAX):
+        bad.append(f"K1 on the bf16 path's inputs: {k1_row}")
+    if not k1_row["chained_bit_equal"]:
+        bad.append("chained K1 differs from one-shot K1 on the bf16 path's inputs")
+    mel = bf.text_to_mel(TEXTS).mel_pred
+    k2_rows = []
+    for i, (x, mw) in enumerate(mrf_inputs(bf, mel)):
+        got, want = k2.mrf(x, mw), k2.mrf_plain(x, mw)
+        e = (got - want).abs()
+        row = dict(stage=i, C=x.shape[1], B=x.shape[0], T=x.shape[2],
+                   input_is_bf16=bool(torch.equal(x, x.bfloat16().float())),
+                   max_abs_err=e.max().item(), ms=cuda_ms(lambda: k2.mrf(x, mw), reps=3),
+                   plain_ms=cuda_ms(lambda: k2.mrf_plain(x, mw), reps=1))
+        k2_rows.append(row)
+        if not (torch.isfinite(got).all() and row["max_abs_err"] < K2_TOL_MAX
+                and row["input_is_bf16"]):
+            bad.append(f"K2 on the bf16 path's inputs: {row}")
+    return k1_row, k2_rows, bad
+
+
+def run_bench(repo: Path) -> dict:
+    """`python -m sambert_hifigan_tpu_torch.bench` with reduced repetitions
+    in a process of its own: its last stdout line."""
+    res = subprocess.run([sys.executable, "-m", "sambert_hifigan_tpu_torch.bench", *BENCH_ARGS],
+                         cwd=repo, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    for line in res.stderr.strip().splitlines()[-16:]:
+        log(f"[bench] {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"the bench exited {res.returncode}:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def bench_faults(line: dict):
+    """What is missing, not finite or not as the contract says in the
+    bench's JSON line."""
+    bad = []
+
+    def finite(v):
+        return isinstance(v, (int, float)) and math.isfinite(v)
+
+    for key in BENCH_KEYS + ("spread", "valid_frames", "fill"):
+        if key not in line:
+            bad.append(f"no {key!r}")
+    for key in BENCH_KEYS:
+        if key in ("metric", "unit"):
+            continue
+        spread = line.get("spread", {}).get(key)
+        if not finite(line.get(key)) or not (isinstance(spread, list) and len(spread) == 2
+                                             and all(map(finite, spread))):
+            bad.append(f"{key}: {line.get(key)} (spread {spread})")
+    for key in ("valid_frames", "fill"):
+        if not all(finite(v) and v > 0 for v in line.get(key, {}).values()):
+            bad.append(f"{key}: {line.get(key)}")
+    if not (finite(line.get("value")) and line["value"] < 1):
+        bad.append(f"value (RTF) {line.get('value')} is not below 1")
+    launches = line.get("launches", {})
+    if not (launches.get("ar_decode", 0) > 0 and launches.get("mrf", 0) > 0):
+        bad.append(f"the bench launched K1 and K2 {launches}")
+    if line.get("dtype") != "bfloat16":
+        bad.append(f"dtype {line.get('dtype')}")
+    return bad
+
+
+def phase_bf16(pipe, repo: Path):
+    """bf16 inference, the JAX `TTSPipeline(dtype=jnp.bfloat16)`: `pipe`'s
+    weights (seed 0) at full width in bf16.  `synthesize_batch(TEXTS)` and
+    `stream(TEXTS[0])` with the counts set to 0 before each and read after
+    (K1 and K2 must launch as the path needs); wav lengths from
+    `total_frames`; the stream within STREAM_TOL_MAX of its `synthesize`;
+    each row's wav against the f32 pipeline's within BF16_VS_F32_MAX (and
+    equal lengths); warm ms of both pipelines' batch and first stream chunk
+    in turns; K1 and K2 at the bf16 path's inputs against their plain
+    versions (`bf16_kernels`); then the benchmark in a process of its own
+    (`run_bench`), every key present and finite, RTF below 1, K1 and K2
+    launched."""
+    import numpy as np
+    import torch
+
+    from sambert_hifigan_tpu_torch.ops import ar_decode as k1
+    from sambert_hifigan_tpu_torch.ops import mrf as k2
+    from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
+
+    t_phase = time.perf_counter()
+    bad = []
+    bf = TTSPipeline(pipe.cfg, pipe.acoustic.state_dict(), pipe.generator.state_dict(),
+                     device=pipe.device, dtype=torch.bfloat16)
+    bf.synthesize_batch(TEXTS)  # first calls
+    list(bf.stream(TEXTS[0], chunk_frames=CHUNK, context_frames=CONTEXT))
+    torch.cuda.synchronize()
+
+    k1.launches = k2.launches = 0
+    wavs = bf.synthesize_batch(TEXTS)
+    torch.cuda.synchronize()
+    batch_launches = {"ar_decode": k1.launches, "mrf": k2.launches}
+    k1.launches = k2.launches = 0
+    chunks = list(bf.stream(TEXTS[0], chunk_frames=CHUNK, context_frames=CONTEXT))
+    torch.cuda.synchronize()
+    stream_launch = {"ar_decode": k1.launches, "mrf": k2.launches}
+
+    totals, want = expected_samples(bf, TEXTS)
+    runs = 1 if max(totals) <= bf._initial_bucket(bf._features(TEXTS)[0], 1.0) else 2
+    if batch_launches != {"ar_decode": runs, "mrf": runs * len(bf.mrf_weights)}:
+        bad.append(f"bf16 synthesize_batch launches {batch_launches}, want {runs} and "
+                   f"{runs * len(bf.mrf_weights)}")
+    lengths = [len(w) for w in wavs]
+    if lengths != want or not all(np.isfinite(w).all() for w in wavs):
+        bad.append(f"bf16 wav lengths {lengths}, want {want} (or non-finite samples)")
+    full = bf.synthesize(TEXTS[0])
+    streamed = np.concatenate(chunks)
+    tph, _ = bf._frontend_args(TEXTS[:1])
+    want_stream = stream_launches(bf, tph, len(full) // bf.hop)
+    stream_diff = (float(np.abs(streamed - full).max()) if streamed.shape == full.shape
+                   else None)
+    if (stream_launch["ar_decode"], stream_launch["mrf"]) != want_stream:
+        bad.append(f"bf16 stream launches {stream_launch}, want {want_stream}")
+    if stream_diff is None or not stream_diff <= STREAM_TOL_MAX:
+        bad.append(f"bf16 stream against its synthesize: {stream_diff} "
+                   f"(shapes {streamed.shape} {full.shape})")
+
+    ref = pipe.synthesize_batch(TEXTS)
+    f32_totals = pipe.text_to_mel(TEXTS).total_frames.cpu().tolist()
+    vs_f32 = [float(np.abs(a - b).max()) if a.shape == b.shape else None
+              for a, b in zip(wavs, ref)]
+    rel_rms = [float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+               if a.shape == b.shape else None for a, b in zip(wavs, ref)]
+    if totals != f32_totals or not all(v is not None and v <= BF16_VS_F32_MAX for v in vs_f32):
+        bad.append(f"bf16 against f32: totals {totals} / {f32_totals}, max |diff| {vs_f32} "
+                   f"(bound {BF16_VS_F32_MAX})")
+
+    # warm ms of both pipelines in turns: the batch, and the stream's first chunk
+    def batch_ms(tts):
+        t0 = time.perf_counter()
+        tts.synthesize_batch(TEXTS)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def first_chunk_ms(tts):
+        t0 = time.perf_counter()
+        it = tts.stream(TEXTS[0], chunk_frames=CHUNK, context_frames=CONTEXT)
+        next(it)
+        ms = (time.perf_counter() - t0) * 1e3
+        it.close()
+        torch.cuda.synchronize()
+        return ms
+
+    ms = {k: [] for k in ("batch_bf16", "batch_f32", "ttfa_bf16", "ttfa_f32")}
+    for i in range(4):
+        for name, tts in (("bf16", bf), ("f32", pipe))[::1 if i % 2 else -1]:
+            ms[f"batch_{name}"].append(batch_ms(tts))
+            ms[f"ttfa_{name}"].append(first_chunk_ms(tts))
+    audio_s = sum(lengths) / pipe.cfg.audio.sample_rate
+    warm = {k: median(v[1:]) for k, v in ms.items()}
+
+    k1_row, k2_rows, kernel_bad = bf16_kernels(bf)
+    bad += kernel_bad
+    t_bench = time.perf_counter()
+    bench = run_bench(repo)
+    bench_s = time.perf_counter() - t_bench
+    bad += [f"bench: {b}" for b in bench_faults(bench)]
+    row = dict(totals=totals, lengths=lengths, batch_launches=batch_launches,
+               stream_launches=stream_launch, stream_max_abs_vs_synthesize=stream_diff,
+               vs_f32_max_abs=vs_f32, vs_f32_rel_rms=rel_rms, warm_ms=warm,
+               rtf_bf16=warm["batch_bf16"] / 1e3 / audio_s,
+               rtf_f32=warm["batch_f32"] / 1e3 / audio_s, k1=k1_row, k2=k2_rows,
+               bench_s=bench_s)
+    row["phase_s"] = time.perf_counter() - t_phase
+    log("[bf16]", json.dumps(row))
+    log("[bf16] bench line:", json.dumps(bench))
+    if row["phase_s"] > BF16_PHASE_LIMIT_S:
+        bad.append(f"phase 14 took {row['phase_s']:.1f} s (limit {BF16_PHASE_LIMIT_S})")
+    if bad:
+        raise AssertionError("phase 14:\n" + "\n".join(bad))
+    row["launches"] = {k: batch_launches[k] + stream_launch[k] for k in batch_launches}
+    row["bench_launches"] = bench["launches"]
+    return row
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -2381,6 +2634,7 @@ def main() -> int:
     tools_row = phase_tools(pipe, dev)
     tp_row = phase_tp(pipe, dev)
     mesh_row = phase_mesh(pipe, dev)
+    bf16_row = phase_bf16(pipe, repo)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -2396,6 +2650,8 @@ def main() -> int:
          "launches_tools": tools_row["launches"]["ar_decode"],
          "launches_tp_train": tp_row["launches"]["ar_decode"],
          "launches_mesh": mesh_row["launches"]["ar_decode"],
+         "launches_bf16": bf16_row["launches"]["ar_decode"],
+         "launches_bench": bf16_row["bench_launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2411,6 +2667,8 @@ def main() -> int:
          "launches_tools": tools_row["launches"]["mrf"],
          "launches_tp_train": tp_row["launches"]["mrf"],
          "launches_mesh": mesh_row["launches"]["mrf"],
+         "launches_bf16": bf16_row["launches"]["mrf"],
+         "launches_bench": bf16_row["bench_launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -2438,7 +2696,11 @@ def main() -> int:
         "own, none; then one synthesize_batch of 2 texts from the --model-parallel torchrun "
         "checkpoints and the text_to_mel that gives their lengths; the dryrun none); "
         "launches_mesh: phase 13's, one synthesize_batch of the 4 texts split over two "
-        "replicas on cuda:0 (one K1 launch and a vocode of four K2 launches a replica)")
+        "replicas on cuda:0 (one K1 launch and a vocode of four K2 launches a replica); "
+        "launches_bf16: phase 14's, one synthesize_batch of the 4 texts and one "
+        "stream(TEXTS[0]) of the bf16 pipeline; launches_bench: the benchmark's inference "
+        "rows in their own process (every warm-up and timed call, and each row's "
+        "valid-frame count)")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,9 @@
 The counterpart of the JAX package's `scripts/bench_decode_modes.py`, which
 set its Pallas kernel against its XLA scan.  The default decoder (6 layers,
 d 256, 8 heads, FFN 2048) with random weights from seed 0 decodes T = 512
-frames at B = 1 from a random memory of 512 frames, over bf16 packed
-weights on the card:
+frames at B = 1 from a random bf16 memory of 512 frames (the JAX script's
+bf16 hvar, projected to bf16 K/V), over bf16 packed weights on either
+device, as the bf16 pipeline packs them:
 
   kernel  K1 (`csrc/ar_decode.cu`), one launch per decode
   plain   `ops/ar_decode.ar_decode_plain`, the same arithmetic as a Python
@@ -32,7 +33,6 @@ def build(device, t: int = T, seed: int = 0):
     import torch
 
     from .config import default_config
-    from .kernels import kernel_dtype
     from .models.ar_decoder import PNCAARDecoder, decode_memory, pack_decoder
     from .models.layers import init_defaults_
 
@@ -42,8 +42,9 @@ def build(device, t: int = T, seed: int = 0):
     init_defaults_(dec, gen)
     dec.init_weights_(gen)
     dec = dec.to(device).eval()
-    w = pack_decoder(dec, kernel_dtype(device))
-    hvar = torch.randn(1, t, am.d_model, generator=gen).to(device)
+    bf16 = torch.bfloat16
+    w = pack_decoder(dec, bf16, bf16)
+    hvar = torch.randn(1, t, am.d_model, generator=gen).to(device, bf16)
     return w, decode_memory(dec, hvar, None, w)
 
 

@@ -5,8 +5,10 @@
 
 The counterpart of the JAX package's `scripts/bench_encode_split.py`.  The
 default acoustic model with random weights from seed 0, B = 1, 64 phonemes,
-a 512-frame bucket, as `TTSPipeline` runs it (the encoder and variance
-adaptor in IEEE f32, the decode through K1 over bf16 packed weights):
+a 512-frame bucket, in bf16 as the JAX script's model and as
+`TTSPipeline(dtype=torch.bfloat16)` runs it (the encoder, the variance
+adaptor and the memory K/V in bf16, the decode through K1 over bf16 packed
+weights and bf16-rounded biases):
 
   enc   embedding + encoder + variance adaptor (`SAMBERTAcousticModel.encode`)
   dec   the decode from that encode's output (memory K/V, then K1), masked
@@ -37,7 +39,7 @@ def build(tph: int = 64, tfrm: int = 512, device=None, cfg=None, seed: int = 0
     import torch
 
     from .config import default_config
-    from .kernels import kernel_dtype, resolve_device
+    from .kernels import resolve_device
     from .models.acoustic_model import acoustic_inference
     from .models.ar_decoder import ar_decode, pack_decoder
     from .pipeline import _ieee_f32
@@ -46,7 +48,8 @@ def build(tph: int = 64, tfrm: int = 512, device=None, cfg=None, seed: int = 0
     device = resolve_device(device)
     cfg = cfg or default_config()
     model = random_acoustic_model(cfg, torch.Generator().manual_seed(seed)).to(device).eval()
-    w = pack_decoder(model.ar_decoder, kernel_dtype(device))
+    bf16 = torch.bfloat16
+    w = pack_decoder(model.ar_decoder, bf16, bf16)
     rng = np.random.default_rng(seed)
     ph = torch.tensor(rng.integers(4, 100, (1, tph)), device=device)
     tone = torch.tensor(rng.integers(0, 5, (1, tph)), device=device)
@@ -56,7 +59,7 @@ def build(tph: int = 64, tfrm: int = 512, device=None, cfg=None, seed: int = 0
     @torch.no_grad()
     def enc():
         with _ieee_f32():
-            return model.encode(ph, tone, bnd, tfrm, mask, 1.0, 0.0, 1.0)
+            return model.encode(ph, tone, bnd, tfrm, mask, 1.0, 0.0, 1.0, dtype=bf16)
 
     @torch.no_grad()
     def decode(va):
@@ -67,7 +70,8 @@ def build(tph: int = 64, tfrm: int = 512, device=None, cfg=None, seed: int = 0
 
     def full():
         with _ieee_f32():
-            return acoustic_inference(model, ph, tone, bnd, tfrm, w, phoneme_mask=mask).mel_pred
+            return acoustic_inference(model, ph, tone, bnd, tfrm, w, phoneme_mask=mask,
+                                      dtype=bf16).mel_pred
 
     va = enc()
     return {"enc": enc, "dec": lambda: decode(va), "full": full, "decode": decode}

@@ -8,8 +8,10 @@ pitch, energy and mel in one differentiable forward, in the compute
 every matrix product and convolution casts its weights at use, LayerNorm
 and softmax compute in f32; the caller casts the outputs to f32 for the
 losses).  A host `torch.Generator` (`rng`) turns dropout on
-(models/layers.py).  Inference (`encode`, `acoustic_inference`) runs f32
-up to the AR decode, which runs over packed weights.
+(models/layers.py).  Inference (`encode`, `acoustic_inference`) runs in
+the compute `dtype` too (f32 by default, bf16 in the bf16 pipeline) up to
+the AR decode, which runs over packed weights and gives its mel back in
+that dtype.
 """
 
 from __future__ import annotations
@@ -109,13 +111,15 @@ def acoustic_inference(
     duration_scale: float = 1.0,
     pitch_shift: float = 0.0,
     energy_scale: float = 1.0,
+    dtype: torch.dtype = torch.float32,
 ) -> AcousticOutput:
     """Predicted durations + autoregressive mel generation of `max_frames`
     frames over the packed decoder weights (`pack_decoder`); frames beyond
-    each sample's predicted total are zeroed."""
+    each sample's predicted total are zeroed.  The encode computes in
+    `dtype` and the mel comes back in it."""
     va = model.encode(
         ph_ids, tone_ids, boundary_ids, max_frames, phoneme_mask,
-        duration_scale, pitch_shift, energy_scale,
+        duration_scale, pitch_shift, energy_scale, dtype=dtype,
     )
     mel = ar_decode(
         model.ar_decoder, va.hvar, max_frames,

@@ -4,7 +4,8 @@ to Hvar, mel projection; every matrix xavier.
 
 Inference decodes from a zero start frame over packed weights
 (`pack_decoder`, once per pipeline) and cross-attention K/V projected once
-per utterance (`precompute_memory_packed`, `decode_memory`).  `ar_decode`
+per utterance, in hvar's dtype (`precompute_memory_packed`,
+`decode_memory`).  `ar_decode`
 decodes every frame in one call; a stream calls `ar_decode_chunk` from
 `init_packed_carry`, chunk after chunk, with the same bits.  Both route
 every CUDA tensor to the K1 kernel (ops/ar_decode.py) and every CPU tensor
@@ -80,10 +81,14 @@ class PNCAARDecoder(nn.Module):
 
 
 @torch.no_grad()
-def pack_decoder(dec: PNCAARDecoder, dtype: torch.dtype) -> DecodeWeights:
+def pack_decoder(dec: PNCAARDecoder, dtype: torch.dtype,
+                 compute_dtype: torch.dtype = torch.float32) -> DecodeWeights:
     """Matrices to [in, out] in `dtype`, stacked over layers, Q/K/V fused;
     biases, LayerNorm and PE in f32; in bf16 also the kernel's weight stream
-    for its cluster size."""
+    for its cluster size.  A bf16 `compute_dtype` rounds the biases to bf16
+    first (held in f32), as the JAX package's bf16 decoder casts every bias
+    to its dtype before its kernel reads them in f32; LayerNorm and PE stay
+    exact."""
 
     def mat(lin):
         return lin.weight.detach().t()
@@ -97,28 +102,31 @@ def pack_decoder(dec: PNCAARDecoder, dtype: torch.dtype) -> DecodeWeights:
     def v(t):
         return t.detach().float().contiguous()
 
+    def bias(t):
+        return v(t.detach().to(compute_dtype))
+
     f32 = torch.float32
     w = DecodeWeights(
-        prenet_w1=m(mat(dec.prenet1)), prenet_b1=v(dec.prenet1.bias),
-        prenet_w2=m(mat(dec.prenet2)), prenet_b2=v(dec.prenet2.bias),
+        prenet_w1=m(mat(dec.prenet1)), prenet_b1=bias(dec.prenet1.bias),
+        prenet_w2=m(mat(dec.prenet2)), prenet_b2=bias(dec.prenet2.bias),
         wqkv=stack(lambda q: torch.cat([mat(q.self_attn.wq), mat(q.self_attn.wk),
                                          mat(q.self_attn.wv)], dim=1), dtype),
-        bqkv=stack(lambda q: torch.cat([q.self_attn.wq.bias, q.self_attn.wk.bias,
-                                         q.self_attn.wv.bias]), f32),
+        bqkv=bias(stack(lambda q: torch.cat([q.self_attn.wq.bias, q.self_attn.wk.bias,
+                                              q.self_attn.wv.bias]), f32)),
         wo=stack(lambda q: mat(q.self_attn.wo), dtype),
-        bo=stack(lambda q: q.self_attn.wo.bias, f32),
+        bo=bias(stack(lambda q: q.self_attn.wo.bias, f32)),
         wcq=stack(lambda q: mat(q.cross_attn.wq), dtype),
-        bcq=stack(lambda q: q.cross_attn.wq.bias, f32),
+        bcq=bias(stack(lambda q: q.cross_attn.wq.bias, f32)),
         wco=stack(lambda q: mat(q.cross_attn.wo), dtype),
-        bco=stack(lambda q: q.cross_attn.wo.bias, f32),
+        bco=bias(stack(lambda q: q.cross_attn.wo.bias, f32)),
         w1=stack(lambda q: mat(q.ffn.linear1), dtype),
-        b1=stack(lambda q: q.ffn.linear1.bias, f32),
+        b1=bias(stack(lambda q: q.ffn.linear1.bias, f32)),
         w2=stack(lambda q: mat(q.ffn.linear2), dtype),
-        b2=stack(lambda q: q.ffn.linear2.bias, f32),
+        b2=bias(stack(lambda q: q.ffn.linear2.bias, f32)),
         ln=stack(lambda q: torch.stack([
             torch.stack([n.weight, n.bias]) for n in (q.norm1, q.norm2, q.norm3)
         ]), f32),
-        mel_w=m(mat(dec.mel_proj)), mel_b=v(dec.mel_proj.bias),
+        mel_w=m(mat(dec.mel_proj)), mel_b=bias(dec.mel_proj.bias),
         pe=v(dec.pe),
         n_heads=dec.config.n_heads,
     )
@@ -130,9 +138,10 @@ def pack_decoder(dec: PNCAARDecoder, dtype: torch.dtype) -> DecodeWeights:
 
 @torch.no_grad()
 def precompute_memory_packed(dec: PNCAARDecoder, hvar: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-attention K/V of every layer, f32 [L, B, S, d] each."""
-    ks = [layer.cross_attn.wk(hvar) for layer in dec.layers]
-    vs = [layer.cross_attn.wv(hvar) for layer in dec.layers]
+    """Cross-attention K/V of every layer, [L, B, S, d] each in hvar's
+    dtype (the weights cast at use, as the JAX package projects them)."""
+    ks = [linear(layer.cross_attn.wk, hvar) for layer in dec.layers]
+    vs = [linear(layer.cross_attn.wv, hvar) for layer in dec.layers]
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -153,8 +162,9 @@ def decode_memory(
     memory_key_padding_mask: Optional[torch.Tensor],  # [B, S] True = pad
     weights: DecodeWeights,
 ) -> DecodeMemory:
-    """Project the memory once per utterance, for every chunk of its decode."""
-    mem_k, mem_v = precompute_memory_packed(dec, hvar.float())
+    """Project the memory once per utterance, for every chunk of its decode:
+    in hvar's dtype (bf16 K/V from a bf16 hvar), then in the weights'."""
+    mem_k, mem_v = precompute_memory_packed(dec, hvar)
     dt = weights.wqkv.dtype
     b, s = hvar.shape[:2]
     if memory_key_padding_mask is None:
@@ -189,6 +199,7 @@ def ar_decode(
     *,
     weights: DecodeWeights,  # pack_decoder(dec, ...)
 ) -> torch.Tensor:
-    """Autoregressive mel generation -> [B, max_len, n_mels] f32."""
+    """Autoregressive mel generation -> [B, max_len, n_mels] in hvar's
+    dtype: the kernel's f32 mel, cast as the JAX decode casts its output."""
     return k1.ar_decode(weights, *decode_memory(dec, hvar, memory_key_padding_mask, weights),
-                        max_len)
+                        max_len).to(hvar.dtype)

@@ -6,11 +6,13 @@ Tfrm * prod(upsample_rates)) -> MRF] -> LeakyReLU -> conv_post(k7) -> tanh.
 No weight norm; the MRF AVERAGES its ResBlocks, and every conv zero-pads its
 own input.
 
-`HiFiGANGenerator.forward(mel, mrf_weights)` runs every MRF through the K2
-wrapper (ops/mrf.py): the hand-written kernels on the card, their plain
-version on the CPU, with the MRF weights packed once by `pack`.  Without
-`mrf_weights` the MRFs run as these plain, differentiable modules, in the
-compute dtype given (training).
+`HiFiGANGenerator.forward(mel, mrf_weights, dtype)` runs every MRF through
+the K2 wrapper (ops/mrf.py): the hand-written kernels on the card, their
+plain version on the CPU, with the MRF weights packed once by `pack`; the
+convolutions around them compute in `dtype`, and in bf16 each MRF's input
+and output are bf16, as the JAX package's fused MRF takes and gives them.
+Without `mrf_weights` the MRFs run as these plain, differentiable modules,
+in the compute dtype given (training).
 
 Discriminators, each returning (logits, feature maps) per critic, maps in
 torch layout ([B, C, T] and [B, C, H, W]):
@@ -110,16 +112,18 @@ class HiFiGANGenerator(nn.Module):
 
     def forward(self, mel: torch.Tensor, mrf_weights: Optional[List[MRFWeights]] = None,
                 dtype: torch.dtype = F32) -> torch.Tensor:
-        """mel [B, n_mels, T] -> wav [B, 1, T * hop] float32.  With
-        `mrf_weights` (inference, f32 around K2) every MRF goes through K2;
-        without, through the modules, every conv in `dtype` and tanh in f32."""
+        """mel [B, n_mels, T] -> wav [B, 1, T * hop] float32, every conv in
+        `dtype` and tanh in f32.  With `mrf_weights` (inference) every MRF
+        goes through K2, which computes in f32 inside: its input is the
+        upsampled `dtype` activation, its output is rounded back to `dtype`;
+        without, through the modules."""
         x = conv1d(self.conv_pre, mel, dtype)
         for i, up in enumerate(self.ups):
             x = conv_transpose1d(up, _lrelu(x), dtype)
             if mrf_weights is None:
                 x = self.mrfs[i](x, dtype)
             else:
-                x = mrf(x.contiguous(), mrf_weights[i])
+                x = mrf(x.float().contiguous(), mrf_weights[i]).to(dtype)
         x = conv1d(self.conv_post, _lrelu(x), dtype)
         return torch.tanh(x.float())
 

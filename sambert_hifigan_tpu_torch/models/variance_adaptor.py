@@ -11,7 +11,9 @@ duration predictor takes no mask, as the reference's does.
 Quantisation keeps the reference's boundary semantics bit for bit: clamp,
 normalise, scale by (n_bins - 1), truncate, clamp; pitch has NO epsilon in
 the denominator while energy has +1e-8.  `torch.round` rounds half to
-even, as `jnp.round` does.  Compute runs in henc's dtype.
+even, as `jnp.round` does.  Compute runs in henc's dtype; the exp of the
+log duration, the prosody controls and the quantisation run in f32, as the
+JAX pipeline's f32 control scalars promote them.
 """
 
 from __future__ import annotations
@@ -106,7 +108,10 @@ class VarianceAdaptor(nn.Module):
         if dur_gt is not None:
             dur = dur_gt.to(torch.int32)
         else:
-            dur = torch.round(torch.exp(log_dur_pred) * duration_scale).to(torch.int32)
+            # exp in f32 of the predictor's output: XLA computes the JAX
+            # package's exp in f32 too, inside the f32 product with the
+            # control, and a bf16 exp rounds e.g. 19.47 to 19.5, then to 20
+            dur = torch.round(torch.exp(log_dur_pred.float()) * duration_scale).to(torch.int32)
             dur = torch.clamp(dur, min=1)
             if phoneme_mask is not None:
                 dur = dur * phoneme_mask.to(torch.int32)
@@ -116,11 +121,11 @@ class VarianceAdaptor(nn.Module):
 
         pitch_tok = self.pitch_predictor(henc, layer_generator(rng, dev))
         pitch_frm = gather_frames(pitch_tok, idx, frame_mask)
-        pitch = pitch_gt if pitch_gt is not None else pitch_frm + pitch_shift
+        pitch = pitch_gt if pitch_gt is not None else pitch_frm.float() + pitch_shift
         pitch_bins = quantize_pitch(pitch, c.pitch_bins, c.pitch_min, c.pitch_max)
         energy_tok = self.energy_predictor(henc, layer_generator(rng, dev))
         energy_frm = gather_frames(energy_tok, idx, frame_mask)
-        energy = energy_gt if energy_gt is not None else energy_frm * energy_scale
+        energy = energy_gt if energy_gt is not None else energy_frm.float() * energy_scale
         energy_bins = quantize_energy(energy, c.energy_bins, c.energy_min, c.energy_max)
         hvar = (hlr + self.pitch_emb(pitch_bins).to(hlr.dtype)
                 + self.energy_emb(energy_bins).to(hlr.dtype))

@@ -23,6 +23,13 @@ the kernels' plain versions run with f32 weights (the reference numerics).
 The plain-PyTorch layers around the kernels run in IEEE f32 on the card too:
 TF32 is off for matmuls and cuDNN convolutions while the pipeline computes.
 
+`dtype=torch.bfloat16` is the JAX pipeline's `dtype=jnp.bfloat16`: the
+encoder, the variance adaptor, the memory K/V and the generator's
+convolutions compute in bf16, the decode's biases are rounded to bf16, the
+mel comes back in bf16, and each MRF takes and gives bf16.  The kernels'
+weights are bf16 on either device then, so the CPU's plain versions round
+where the kernels do.  f32 is the default, as in the JAX package.
+
 Data-parallel serving (`devices=[...]`, the JAX package's `mesh=`): one
 replica of the weights per device, the batch padded to a multiple of the
 device count and split into contiguous rows, one frame bucket and at most
@@ -100,11 +107,17 @@ class TTSPipeline:
     not split run there.  An entry may repeat: the CPU is one torch device,
     so a CPU pipeline over d replicas is `["cpu"] * d`, and two replicas on
     one card run the split path where there is one card.  `devices=None` is
-    the single-device pipeline."""
+    the single-device pipeline.
+
+    `dtype` (torch.float32 or torch.bfloat16) is the compute dtype of every
+    path and every replica."""
 
     def __init__(self, cfg: TTSConfig, acoustic_state, generator_state, device=None,
-                 devices=None):
+                 devices=None, dtype: torch.dtype = torch.float32):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         self.cfg = cfg
+        self.dtype = dtype
         self.devices = resolve_devices(device, devices)
         self.device = self.devices[0]
         self.acoustic = SAMBERTAcousticModel(cfg.acoustic_model)
@@ -114,14 +127,15 @@ class TTSPipeline:
         self.generator.load_state_dict(generator_state)
         self.generator.to(self.device).eval()
         # the kernels' weights, packed once per pipeline
-        self.kernel_dtype = kernel_dtype(self.device)
-        self.decode_weights = pack_decoder(self.acoustic.ar_decoder, self.kernel_dtype)
+        self.kernel_dtype = torch.bfloat16 if dtype == torch.bfloat16 else kernel_dtype(self.device)
+        self.decode_weights = pack_decoder(self.acoustic.ar_decoder, self.kernel_dtype, dtype)
         self.mrf_weights = self.generator.pack(self.kernel_dtype)
         fe = cfg.acoustic_model.frontend
         self.frontend = FrontEnd(fe.vocab_size, fe.tone_size, fe.boundary_size)
         self.hop = cfg.audio.hop_length
         # one replica per entry of `devices`, this pipeline the first
-        self.replicas = [self] + [TTSPipeline(cfg, acoustic_state, generator_state, device=dev)
+        self.replicas = [self] + [TTSPipeline(cfg, acoustic_state, generator_state, device=dev,
+                                              dtype=dtype)
                                   for dev in self.devices[1:]]
 
     def _features(self, texts):
@@ -161,7 +175,7 @@ class TTSPipeline:
         ph, tone, bound, pmask = args
         with _ieee_f32():
             return self.acoustic.encode(ph, tone, bound, max_frames, pmask, duration_scale,
-                                        pitch_shift, energy_scale)
+                                        pitch_shift, energy_scale, dtype=self.dtype)
 
     def _acoustic(self, args, max_frames, duration_scale, pitch_shift, energy_scale):
         ph, tone, bound, pmask = args
@@ -169,7 +183,7 @@ class TTSPipeline:
             return acoustic_inference(
                 self.acoustic, ph, tone, bound, max_frames, self.decode_weights,
                 phoneme_mask=pmask, duration_scale=duration_scale,
-                pitch_shift=pitch_shift, energy_scale=energy_scale,
+                pitch_shift=pitch_shift, energy_scale=energy_scale, dtype=self.dtype,
             )
 
     def _dispatch(self, parts, max_frames, controls, vocode: bool):
@@ -282,11 +296,12 @@ class TTSPipeline:
     def _vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
         """This replica's vocoder on its own device."""
         with _ieee_f32():
-            return self.generator(mel_btc.transpose(1, 2), self.mrf_weights)
+            return self.generator(mel_btc.transpose(1, 2), self.mrf_weights, self.dtype)
 
     @torch.no_grad()
     def vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
-        """mel [B, T, n_mels] -> wav [B, 1, T * hop] on `self.device`.  Over
+        """mel [B, T, n_mels] -> wav [B, 1, T * hop] f32 on `self.device`
+        (the generator computes in the pipeline's dtype).  Over
         d devices the rows are split over the replicas when d divides B (as
         the JAX mesh shards the mel), else they all run on devices[0]."""
         d = len(self.replicas)
@@ -422,7 +437,7 @@ class _StreamRun:
         self.carry = init_packed_carry(pipe.decode_weights, 1, max_frames)
         self.total_frames = va.total_frames
         self.total_dev = va.total_frames.clamp(max=max_frames)  # masks window tails
-        self.chunks: List[torch.Tensor] = []  # [1, steps, n_mels] each
+        self.chunks: List[torch.Tensor] = []  # [1, steps, n_mels] each, the pipeline's dtype
         self.pos = 0  # frames decoded
 
     def _ensure_decoded(self, need: int) -> None:
@@ -432,7 +447,9 @@ class _StreamRun:
             steps = min(self.chunk, self.max_frames - self.pos)
             self.carry, mel = ar_decode_chunk(self.pipe.decode_weights, self.memory,
                                               self.carry, self.pos, steps)
-            self.chunks.append(mel)
+            # the one-shot decode's cast; the carry keeps the f32 frame, which
+            # the next chunk's prenet rounds as the one-shot feedback does
+            self.chunks.append(mel.to(self.pipe.dtype))
             self.pos += steps
 
     def _window_device(self, start: int) -> torch.Tensor:
@@ -471,14 +488,16 @@ class _StreamRun:
 
 
 def build_pipeline_from_random_init(cfg: TTSConfig, seed: int = 0, device=None,
-                                    devices=None) -> TTSPipeline:
-    """Random-weight pipeline from a seed (benchmarks and smoke runs)."""
+                                    devices=None, dtype: torch.dtype = torch.float32
+                                    ) -> TTSPipeline:
+    """Random-weight pipeline from a seed (benchmarks and smoke runs); the
+    weights do not depend on `dtype`."""
     resolve_devices(device, devices)  # refuse a bad device before making weights
     gen = torch.Generator().manual_seed(seed)
     acoustic = random_acoustic_model(cfg, gen)
     generator = random_generator(cfg, gen)
     return TTSPipeline(cfg, acoustic.state_dict(), generator.state_dict(), device=device,
-                       devices=devices)
+                       devices=devices, dtype=dtype)
 
 
 def build_pipeline(cfg: TTSConfig, seed: int = 0, device=None,

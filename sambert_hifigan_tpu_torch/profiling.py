@@ -12,6 +12,8 @@ Surfaces:
   e2e        text -> wav (`text_to_mel`, then `vocode`; default)
   decode     text -> mel (the AR decode path: K1 on the card)
   vocoder    mel -> wav (the generator: K2 on the card)
+             (these three on the bf16 pipeline, as the JAX script profiles
+             its `dtype=jnp.bfloat16` one)
   train-acoustic / train-vocoder   one train step on a synthetic batch
              (bf16 recipe; B = --batch, 48 phonemes x 384 frames, or
              32-frame adv_mel_fm segments)
@@ -103,7 +105,8 @@ def build_surface(args, device) -> Tuple[Callable, Callable]:
     if args.surface in ("e2e", "decode", "vocoder"):
         from .pipeline import build_pipeline_from_random_init
 
-        pipe = build_pipeline_from_random_init(cfg, seed=args.seed, device=device)
+        pipe = build_pipeline_from_random_init(cfg, seed=args.seed, device=device,
+                                               dtype=torch.bfloat16)
 
         def text_to_mel():
             return pipe.text_to_mel([args.text], max_frames=args.max_frames).mel_pred

@@ -66,7 +66,7 @@ from tests.test_torch_vocoder_train import Pair
 REPO = Path(__file__).resolve().parent.parent
 TOOLS = ["profiling", "utils.debug", "bench_decode_modes", "bench_encode_split",
          "bench_scaling", "plot_audio", "make_demo_dataset", "demo_ablation_modes",
-         "demo_feature_matching_loss", "eval_demo_run", "dryrun"]
+         "demo_feature_matching_loss", "eval_demo_run", "dryrun", "bench"]
 
 
 # ---- entry points -----------------------------------------------------------------
