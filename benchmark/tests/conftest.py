@@ -1,0 +1,13 @@
+"""Puts the benchmark's packages and the repository root on the path of
+its CPU tests."""
+
+from __future__ import annotations
+
+import os
+import sys
+
+BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH_DIR)
+for p in (os.path.dirname(os.path.abspath(__file__)), BENCH_DIR, ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
