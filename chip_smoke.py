@@ -71,9 +71,7 @@ main path's weights: `synthesize_batch` and `stream` through K1 and K2
 (launches, lengths, the stream against `synthesize`), each wav against the
 f32 pipeline's within a bound PERF.md predicted, warm ms of both in turns,
 K1 and K2 at the bf16 path's inputs against their plain versions (chained
-K1 bit for bit), then `python -m sambert_hifigan_tpu_torch.bench` with
-reduced repetitions in a process of its own (every key of its JSON line
-present and finite, RTF below 1, K1 and K2 launched).  Any failed phase
+K1 bit for bit).  Any failed phase
 raises and the script exits non-zero.  It imports nothing of JAX.
 
 Output: one line per phase; before the last line, a JSON object with every
@@ -2332,7 +2330,7 @@ def phase_mesh(pipe, dev):
     return row
 
 
-# ---- phase 14: bf16 inference and the benchmark -----------------------------
+# ---- phase 14: bf16 inference ------------------------------------------------
 
 BF16_PHASE_LIMIT_S = 180.0  # a hung phase fails; the aim is under 90 s
 # the bf16 pipeline's wav against the f32 pipeline's on the same weights, max
@@ -2340,13 +2338,6 @@ BF16_PHASE_LIMIT_S = 180.0  # a hung phase fails; the aim is under 90 s
 # CPU's plain versions at full width, f32 pipeline over bf16 kernel weights,
 # gave 1.3e-3 to 2.4e-3, equal durations)
 BF16_VS_F32_MAX = 1e-2
-BENCH_TIMEOUT_S = 300
-BENCH_ARGS = ("--reps", "2")
-# the root bench.py's keys, which the port's line keeps
-BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "vs_repo_target",
-              "decode_b16_frames_per_s", "decode_b16_vs_2x_b8", "stream_ttfb_ms",
-              "train_acoustic_steps_per_s", "train_acoustic_mfu", "train_vocoder_steps_per_s",
-              "train_vocoder_mfu")
 
 
 def mrf_inputs(tts, mel):
@@ -2420,50 +2411,7 @@ def bf16_kernels(bf):
     return k1_row, k2_rows, bad
 
 
-def run_bench(repo: Path) -> dict:
-    """`python -m sambert_hifigan_tpu_torch.bench` with reduced repetitions
-    in a process of its own: its last stdout line."""
-    res = subprocess.run([sys.executable, "-m", "sambert_hifigan_tpu_torch.bench", *BENCH_ARGS],
-                         cwd=repo, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    for line in res.stderr.strip().splitlines()[-16:]:
-        log(f"[bench] {line}")
-    if res.returncode != 0:
-        raise AssertionError(f"the bench exited {res.returncode}:\n{res.stderr[-3000:]}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
-
-
-def bench_faults(line: dict):
-    """What is missing, not finite or not as the contract says in the
-    bench's JSON line."""
-    bad = []
-
-    def finite(v):
-        return isinstance(v, (int, float)) and math.isfinite(v)
-
-    for key in BENCH_KEYS + ("spread", "valid_frames", "fill"):
-        if key not in line:
-            bad.append(f"no {key!r}")
-    for key in BENCH_KEYS:
-        if key in ("metric", "unit"):
-            continue
-        spread = line.get("spread", {}).get(key)
-        if not finite(line.get(key)) or not (isinstance(spread, list) and len(spread) == 2
-                                             and all(map(finite, spread))):
-            bad.append(f"{key}: {line.get(key)} (spread {spread})")
-    for key in ("valid_frames", "fill"):
-        if not all(finite(v) and v > 0 for v in line.get(key, {}).values()):
-            bad.append(f"{key}: {line.get(key)}")
-    if not (finite(line.get("value")) and line["value"] < 1):
-        bad.append(f"value (RTF) {line.get('value')} is not below 1")
-    launches = line.get("launches", {})
-    if not (launches.get("ar_decode", 0) > 0 and launches.get("mrf", 0) > 0):
-        bad.append(f"the bench launched K1 and K2 {launches}")
-    if line.get("dtype") != "bfloat16":
-        bad.append(f"dtype {line.get('dtype')}")
-    return bad
-
-
-def phase_bf16(pipe, repo: Path):
+def phase_bf16(pipe):
     """bf16 inference, the JAX `TTSPipeline(dtype=jnp.bfloat16)`: `pipe`'s
     weights (seed 0) at full width in bf16.  `synthesize_batch(TEXTS)` and
     `stream(TEXTS[0])` with the counts set to 0 before each and read after
@@ -2472,9 +2420,7 @@ def phase_bf16(pipe, repo: Path):
     each row's wav against the f32 pipeline's within BF16_VS_F32_MAX (and
     equal lengths); warm ms of both pipelines' batch and first stream chunk
     in turns; K1 and K2 at the bf16 path's inputs against their plain
-    versions (`bf16_kernels`); then the benchmark in a process of its own
-    (`run_bench`), every key present and finite, RTF below 1, K1 and K2
-    launched."""
+    versions (`bf16_kernels`)."""
     import numpy as np
     import torch
 
@@ -2555,25 +2501,18 @@ def phase_bf16(pipe, repo: Path):
 
     k1_row, k2_rows, kernel_bad = bf16_kernels(bf)
     bad += kernel_bad
-    t_bench = time.perf_counter()
-    bench = run_bench(repo)
-    bench_s = time.perf_counter() - t_bench
-    bad += [f"bench: {b}" for b in bench_faults(bench)]
     row = dict(totals=totals, lengths=lengths, batch_launches=batch_launches,
                stream_launches=stream_launch, stream_max_abs_vs_synthesize=stream_diff,
                vs_f32_max_abs=vs_f32, vs_f32_rel_rms=rel_rms, warm_ms=warm,
                rtf_bf16=warm["batch_bf16"] / 1e3 / audio_s,
-               rtf_f32=warm["batch_f32"] / 1e3 / audio_s, k1=k1_row, k2=k2_rows,
-               bench_s=bench_s)
+               rtf_f32=warm["batch_f32"] / 1e3 / audio_s, k1=k1_row, k2=k2_rows)
     row["phase_s"] = time.perf_counter() - t_phase
     log("[bf16]", json.dumps(row))
-    log("[bf16] bench line:", json.dumps(bench))
     if row["phase_s"] > BF16_PHASE_LIMIT_S:
         bad.append(f"phase 14 took {row['phase_s']:.1f} s (limit {BF16_PHASE_LIMIT_S})")
     if bad:
         raise AssertionError("phase 14:\n" + "\n".join(bad))
     row["launches"] = {k: batch_launches[k] + stream_launch[k] for k in batch_launches}
-    row["bench_launches"] = bench["launches"]
     return row
 
 
@@ -2634,7 +2573,7 @@ def main() -> int:
     tools_row = phase_tools(pipe, dev)
     tp_row = phase_tp(pipe, dev)
     mesh_row = phase_mesh(pipe, dev)
-    bf16_row = phase_bf16(pipe, repo)
+    bf16_row = phase_bf16(pipe)
 
     k1_main = k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
@@ -2651,7 +2590,6 @@ def main() -> int:
          "launches_tp_train": tp_row["launches"]["ar_decode"],
          "launches_mesh": mesh_row["launches"]["ar_decode"],
          "launches_bf16": bf16_row["launches"]["ar_decode"],
-         "launches_bench": bf16_row["bench_launches"]["ar_decode"],
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2668,7 +2606,6 @@ def main() -> int:
          "launches_tp_train": tp_row["launches"]["mrf"],
          "launches_mesh": mesh_row["launches"]["mrf"],
          "launches_bf16": bf16_row["launches"]["mrf"],
-         "launches_bench": bf16_row["bench_launches"]["mrf"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_main),
          "ms": sum(r["ms"] for r in k2_main), "plain_ms": sum(r["plain_ms"] for r in k2_main),
          "bound_ms": sum(r["bound_ms"] for r in k2_main),
@@ -2698,9 +2635,7 @@ def main() -> int:
         "launches_mesh: phase 13's, one synthesize_batch of the 4 texts split over two "
         "replicas on cuda:0 (one K1 launch and a vocode of four K2 launches a replica); "
         "launches_bf16: phase 14's, one synthesize_batch of the 4 texts and one "
-        "stream(TEXTS[0]) of the bf16 pipeline; launches_bench: the benchmark's inference "
-        "rows in their own process (every warm-up and timed call, and each row's "
-        "valid-frame count)")
+        "stream(TEXTS[0]) of the bf16 pipeline")
     log(json.dumps(kernels_line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import kernels
+from . import kernels, tracing
 from .config import TTSConfig
 from .kernels import kernel_dtype, resolve_device
 from .models.acoustic_model import AcousticOutput, SAMBERTAcousticModel, acoustic_inference
@@ -193,8 +193,13 @@ class TTSPipeline:
         outs = []
         with _ieee_f32():
             for rep, args in zip(self.replicas, parts):
-                out = rep._acoustic(args, max_frames, *controls)
-                outs.append((out, rep._vocode(out.mel_pred) if vocode else None))
+                with tracing.device_span("batch.acoustic", rep.device):
+                    out = rep._acoustic(args, max_frames, *controls)
+                wav = None
+                if vocode:
+                    with tracing.device_span("batch.vocode", rep.device):
+                        wav = rep._vocode(out.mel_pred)
+                outs.append((out, wav))
         return outs
 
     def _gather(self, outs) -> AcousticOutput:
@@ -345,32 +350,39 @@ class TTSPipeline:
         and split; every replica is enqueued before the first copy, and the
         whole batch shares one frame bucket and one overflow decision (the
         largest total of any row), as the JAX mesh's one program does."""
-        n = len(texts)
-        bb = self.cfg.runtime.batch_buckets
-        if bb and n < max(bb):
-            texts = list(texts) + [texts[-1]] * (pick_bucket(n, bb) - n)
-        tph, parts = self._split_args(texts)
-        controls = (duration_scale, pitch_shift, energy_scale)
-        buckets = self.cfg.runtime.frame_buckets
-        if max_frames is not None:  # caller pinned the bucket: never re-run
-            buckets = (max_frames,)
-        else:
-            max_frames = self._initial_bucket(tph, duration_scale)
-        for _ in range(2):  # optimistic pass + at most one overflow re-run
-            outs = self._dispatch(parts, max_frames, controls, vocode=True)
-            # each wav copy waits for its own device only, and every device's
-            # work is already enqueued; the totals copies then find them drained
-            wav_np = np.concatenate([wav.cpu().numpy() for _, wav in outs])
-            totals = np.concatenate([out.total_frames.cpu().numpy() for out, _ in outs])
-            need = int(totals.max())
-            if need <= max_frames or max_frames >= max(buckets):
-                break
-            max_frames = pick_bucket(min(need, max(buckets)), buckets)
-        self._warn_truncated(need, max_frames)
-        return [
-            np.asarray(wav_np[i, 0, : min(int(totals[i]), max_frames) * self.hop])
-            for i in range(n)
-        ]
+        with tracing.span("batch.call"):
+            n = len(texts)
+            with tracing.span("batch.frontend"):
+                bb = self.cfg.runtime.batch_buckets
+                if bb and n < max(bb):
+                    texts = list(texts) + [texts[-1]] * (pick_bucket(n, bb) - n)
+                tph, parts = self._split_args(texts)
+            rows = sum(p[0].shape[0] for p in parts)
+            tracing.count("batch.rows_padded", rows - n)
+            controls = (duration_scale, pitch_shift, energy_scale)
+            buckets = self.cfg.runtime.frame_buckets
+            if max_frames is not None:  # caller pinned the bucket: never re-run
+                buckets = (max_frames,)
+            else:
+                max_frames = self._initial_bucket(tph, duration_scale)
+            for rerun in range(2):  # optimistic pass + at most one overflow re-run
+                tracing.count("batch.overflow_reruns", rerun)
+                tracing.count("batch.frames_decoded", rows * max_frames)
+                with tracing.span("batch.dispatch"):
+                    outs = self._dispatch(parts, max_frames, controls, vocode=True)
+                # each wav copy waits for its own device only, and every device's
+                # work is already enqueued; the totals copies then find them drained
+                with tracing.span("batch.fetch"):
+                    wav_np = np.concatenate([wav.cpu().numpy() for _, wav in outs])
+                    totals = np.concatenate([out.total_frames.cpu().numpy() for out, _ in outs])
+                need = int(totals.max())
+                if need <= max_frames or max_frames >= max(buckets):
+                    break
+                max_frames = pick_bucket(min(need, max(buckets)), buckets)
+            self._warn_truncated(need, max_frames)
+            frames = [min(int(totals[i]), max_frames) for i in range(n)]
+            tracing.count("batch.frames_returned", sum(frames))
+            return [np.asarray(wav_np[i, 0, : frames[i] * self.hop]) for i in range(n)]
 
     # ---- streaming -----------------------------------------------------------
 
@@ -396,23 +408,32 @@ class TTSPipeline:
         the bucket that fits.  Later chunks cost one copy each.  The text is
         one row, not padded to a batch bucket.  Grad mode is off whichever
         thread resumes the generator."""
-        tph, args = self._frontend_args([text])
+        with tracing.span("stream.frontend"):
+            tph, args = self._frontend_args([text])
         controls = (duration_scale, pitch_shift, energy_scale)
         buckets = self.cfg.runtime.frame_buckets
         max_frames = self._initial_bucket(tph, duration_scale)
         run = _StreamRun(self, args, controls, max_frames, chunk_frames, context_frames)
         first_wav, need = run.first_fetch()
-        if need > max_frames and max_frames < max(buckets):
+        restart = need > max_frames and max_frames < max(buckets)
+        tracing.count("stream.overflow_restarts", restart)
+        if restart:
             # the truncated encode would change the decode: restart cleanly
             max_frames = pick_bucket(min(need, max(buckets)), buckets)
             run = _StreamRun(self, args, controls, max_frames, chunk_frames, context_frames)
             first_wav, need = run.first_fetch()
         self._warn_truncated(need, max_frames)
         total = min(need, max_frames)
-        yield first_wav[: min(chunk_frames, total) * self.hop]
+        frames = min(chunk_frames, total)
+        tracing.count("stream.frames_returned", frames)
+        yield first_wav[: frames * self.hop]
         for start in range(chunk_frames, total, chunk_frames):
-            wav = run.window_wav(start, total).cpu().numpy()
-            yield wav[: min(chunk_frames, total - start) * self.hop]
+            wav = run.window_wav(start, total)
+            with tracing.span("stream.fetch"):
+                wav = wav.cpu().numpy()
+            frames = min(chunk_frames, total - start)
+            tracing.count("stream.frames_returned", frames)
+            yield wav[: frames * self.hop]
 
 
 class _StreamRun:
@@ -430,10 +451,11 @@ class _StreamRun:
         self.context = context_frames
         self.window = chunk_frames + 2 * context_frames
         self.hop = pipe.hop
-        va = pipe._encode(args, max_frames, *controls)
-        with _ieee_f32():  # memory K/V projected once per utterance
-            self.memory = decode_memory(pipe.acoustic.ar_decoder, va.hvar, ~va.frame_mask,
-                                        pipe.decode_weights)
+        with tracing.device_span("stream.encode", pipe.device):
+            va = pipe._encode(args, max_frames, *controls)
+            with _ieee_f32():  # memory K/V projected once per utterance
+                self.memory = decode_memory(pipe.acoustic.ar_decoder, va.hvar, ~va.frame_mask,
+                                            pipe.decode_weights)
         self.carry = init_packed_carry(pipe.decode_weights, 1, max_frames)
         self.total_frames = va.total_frames
         self.total_dev = va.total_frames.clamp(max=max_frames)  # masks window tails
@@ -445,11 +467,13 @@ class _StreamRun:
         stops at the bucket."""
         while self.pos < min(need, self.max_frames):
             steps = min(self.chunk, self.max_frames - self.pos)
-            self.carry, mel = ar_decode_chunk(self.pipe.decode_weights, self.memory,
-                                              self.carry, self.pos, steps)
-            # the one-shot decode's cast; the carry keeps the f32 frame, which
-            # the next chunk's prenet rounds as the one-shot feedback does
-            self.chunks.append(mel.to(self.pipe.dtype))
+            with tracing.device_span("stream.decode", self.pipe.device):
+                self.carry, mel = ar_decode_chunk(self.pipe.decode_weights, self.memory,
+                                                  self.carry, self.pos, steps)
+                # the one-shot decode's cast; the carry keeps the f32 frame, which
+                # the next chunk's prenet rounds as the one-shot feedback does
+                self.chunks.append(mel.to(self.pipe.dtype))
+            tracing.count("stream.k1_steps", steps)
             self.pos += steps
 
     def _window_device(self, start: int) -> torch.Tensor:
@@ -458,26 +482,29 @@ class _StreamRun:
         the one-shot vocode's convolutions pad (the JAX package fills it
         with zero frames instead, which moves the last samples of a text
         that fills its bucket)."""
-        lo = max(0, start - self.context)
-        n = min(self.window, self.max_frames - lo)
-        c0, c1 = lo // self.chunk, (lo + n - 1) // self.chunk
-        off = lo - c0 * self.chunk
-        seg = torch.cat(self.chunks[c0:c1 + 1], dim=1)[:, off:off + n]
-        # frames not decoded lie at or past the total: zeros, as the mask makes
-        # every frame there in the one-shot path
-        seg = F.pad(seg, (0, 0, 0, n - seg.shape[1]))
-        idx = lo + torch.arange(n, device=seg.device)
-        seg = seg * (idx < self.total_dev).to(seg.dtype)[None, :, None]
-        wav = self.pipe._vocode(seg)
-        s = (start - lo) * self.hop
-        return wav[0, 0, s:s + self.chunk * self.hop]
+        with tracing.device_span("stream.vocode", self.pipe.device):
+            lo = max(0, start - self.context)
+            n = min(self.window, self.max_frames - lo)
+            c0, c1 = lo // self.chunk, (lo + n - 1) // self.chunk
+            off = lo - c0 * self.chunk
+            seg = torch.cat(self.chunks[c0:c1 + 1], dim=1)[:, off:off + n]
+            # frames not decoded lie at or past the total: zeros, as the mask makes
+            # every frame there in the one-shot path
+            seg = F.pad(seg, (0, 0, 0, n - seg.shape[1]))
+            idx = lo + torch.arange(n, device=seg.device)
+            seg = seg * (idx < self.total_dev).to(seg.dtype)[None, :, None]
+            wav = self.pipe._vocode(seg)
+            s = (start - lo) * self.hop
+            return wav[0, 0, s:s + self.chunk * self.hop]
 
     def first_fetch(self) -> Tuple[np.ndarray, int]:
         """Enqueue everything up to the first vocoded chunk, then one copy
         of (first wav, total frames)."""
         self._ensure_decoded(self.chunk + self.context)
         wav = self._window_device(0)
-        host = torch.cat([wav, self.total_frames.float()]).cpu().numpy()
+        both = torch.cat([wav, self.total_frames.float()])
+        with tracing.span("stream.fetch"):
+            host = both.cpu().numpy()
         return host[:-1], int(host[-1])
 
     def window_wav(self, start: int, total: int) -> torch.Tensor:

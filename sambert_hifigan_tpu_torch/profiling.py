@@ -32,8 +32,17 @@ CPU operators by self time and reports no device time.  `--tiny` shrinks
 both models (a quick check of the capture path).  Runs on the CUDA card
 unless --device cpu is given.
 
+The program's own spans (`tracing.py`: on while the profiler runs, on
+every thread, the batcher's worker included, whose host work the profiler
+does not see) share the profiler's clock.  `export` writes them into the
+trace, one track per thread beside the profiler's (a request's queue wait
+as an async slice of its own); `summarize` labels the longest idle gaps of
+the device with the innermost program span over each gap's middle, else
+the host operator running then.
+
 The readers here (`capture`, `kernel_events`, `busy_ms`, `summarize`,
-`profile_step`) are shared with `bench_encode_split` and `chip_smoke.py`.
+`profile_step`, `program_spans`, `export`) are shared with
+`bench_encode_split` and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -213,16 +222,103 @@ def ranked_cpu_ops(prof, n: int) -> List[Tuple[str, float, int]]:
     return [(k.key, k.self_cpu_time_total / 1e3, k.count) for k in rows[:n]]
 
 
+def program_spans(prof) -> List[Tuple[float, float, object]]:
+    """The program's spans (`tracing.spans()`) that end after the capture
+    began, on its axis: (start_us, end_us, span), as `prof.events()` time
+    them.  Tracing is on while the profiler runs, so these are the
+    capture's, and those recorded since under `tracing.enable`."""
+    from . import tracing
+
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    return [((sp.start_ns - t0) / 1e3, (sp.end_ns - t0) / 1e3, sp) for sp in tracing.spans()
+            if sp.end_ns >= t0]
+
+
+def idle_gaps(prof, n: int = 10) -> List[Tuple[str, float]]:
+    """The n longest stretches between the device's merged busy intervals,
+    longest first, as (label, ms): the innermost program span over the
+    gap's middle (a thread's own span before a request's wait), else the
+    innermost host operator over it, else "after" the last one begun."""
+    import torch
+
+    merged = []
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in kernel_events(prof)):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    gaps = sorted(((a[1], b[0]) for a, b in zip(merged, merged[1:])), key=lambda g: g[0] - g[1])
+    spans = program_spans(prof)
+    host = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    out = []
+    for s, e in gaps[:n]:
+        mid = (s + e) / 2
+        over = [(sp.leg, t - u, sp.name) for u, t, sp in spans if u <= mid <= t]
+        label = min(over)[2] if over else None
+        if label is None:
+            ops = [(t - u, name) for u, t, name in host if u <= mid <= t]
+            before = [(u, name) for u, t, name in host if u <= mid]
+            label = (min(ops)[1] if ops else f"after {max(before)[1]}" if before else "host")
+        out.append((label, (e - s) / 1e3))
+    return out
+
+
+def export(prof, path) -> None:
+    """`prof`'s Chrome trace at `path` (gzipped where it ends in .gz) with
+    the program's spans of its window merged in: on their thread's track
+    (named where the profiler saw no work of that thread), a request's
+    queue wait as an async slice."""
+    import gzip
+    import json
+    import os
+
+    from . import tracing
+
+    path = str(path)
+    raw = path + ".profiler.json"
+    prof.export_chrome_trace(raw)
+    with open(raw) as f:
+        trace = json.load(f)
+    os.remove(raw)
+    base = trace.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    events = trace.setdefault("traceEvents", [])
+    named = {e.get("tid") for e in events if e.get("name") == "thread_name"}
+    threads = set()
+    for _, _, sp in program_spans(prof):
+        ts, args = (sp.start_ns - base) / 1e3, {"req": sp.req, "id": sp.id, "parent": sp.parent,
+                                                "device_ms": sp.device_ms}
+        if sp.leg:
+            common = dict(name=sp.name, cat="program", id=sp.id, pid=pid, tid=sp.thread)
+            events += [dict(common, ph="b", ts=ts, args=args),
+                       dict(common, ph="e", ts=(sp.end_ns - base) / 1e3)]
+            continue
+        threads.add(sp.thread)
+        events.append(dict(ph="X", name=sp.name, cat="program", ts=ts,
+                           dur=(sp.end_ns - sp.start_ns) / 1e3, pid=pid, tid=sp.thread,
+                           args=args))
+    names = tracing.thread_names()
+    events += [dict(ph="M", name="thread_name", pid=pid, tid=t,
+                    args={"name": f"{names.get(t, 'thread')} {t}"})
+               for t in sorted(threads - named)]
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wt") as f:
+        json.dump(trace, f)
+
+
 def summarize(prof, wall_ms: float, n: int = 10, calls: int = 1) -> dict:
     """A capture's device time per call: the summed kernel ms, the busy ms
     (union of intervals), the kernel count, the n kernels that took most,
-    the window's wall ms and the device's idle share of it."""
+    the window's wall ms and the device's idle share of it, and the n
+    longest idle gaps labelled (`idle_gaps`, not per call)."""
     kernels = kernel_events(prof)
     busy = busy_ms(kernels)
     return dict(device_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls,
                 busy_ms=busy / calls, kernels=len(kernels) // calls, wall_ms=wall_ms / calls,
                 idle_share=1.0 - busy / wall_ms if wall_ms > 0 else None,
-                top=[(name[:90], ms / calls, c) for name, ms, c in ranked_kernels(kernels, n)])
+                top=[(name[:90], ms / calls, c) for name, ms, c in ranked_kernels(kernels, n)],
+                idle_gaps=idle_gaps(prof, n))
 
 
 def profile_step(fn: Callable, n: int = 10) -> dict:
@@ -267,7 +363,7 @@ def main(argv=None) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     prof, wall_ms, _ = capture(fn, args.reps, sync, cuda)
     trace = out_dir / "trace.json.gz"
-    prof.export_chrome_trace(str(trace))
+    export(prof, trace)
     print(f"trace written to {trace} ({args.reps} reps of {args.surface}, "
           f"{wall_ms:.1f} ms wall under the profiler, {plain_ms:.1f} ms without)")
     print("view: ui.perfetto.dev or chrome://tracing (load the file as it is)")

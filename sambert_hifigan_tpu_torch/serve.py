@@ -2,7 +2,7 @@
 
   python -m sambert_hifigan_tpu_torch.serve [--acoustic-checkpoint checkpoints/acoustic] \
       [--vocoder-checkpoint checkpoints/vocoder] [--seed 0] [--port 8000] \
-      [--max-batch 16] [--max-wait-ms 20] [--warmup] [--device cpu]
+      [--max-batch 16] [--max-wait-ms 20] [--warmup] [--device cpu] [--trace]
 
 Endpoints:
   POST /tts         {"text": "...", "duration_scale": 1.0, "pitch_shift": 0.0,
@@ -11,12 +11,34 @@ Endpoints:
                     streamed as it is synthesized: the WAV header goes out
                     at once (unknown-length RIFF sizes) and PCM chunks
                     follow as the chunked AR decode produces them
-  GET  /healthz     ->  {"ok": true, ...batcher stats}
+  GET  /healthz     ->  {"ok": true, ...batcher stats, "trace": {...} with --trace}
 
 Concurrent requests that arrive within the micro-batch window are fused into
 one `synthesize_batch` call by `serving.DynamicBatcher`.  The HTTP layer is a
 stdlib ThreadingHTTPServer: each connection thread blocks on its request
 while the batcher's one worker thread drives the card.
+
+--trace turns on the serving path's spans and counters (`tracing.py`) for
+the server's life; /healthz then carries `tracing.snapshot()` under
+"trace": per span name its count, total, mean, p50 and p95 ms and self
+time ("spans"), the device time of the device spans ("device"), and the
+counters ("counters"), over the last 100,000 spans.  The spans:
+
+  batcher.queue_wait   a request's put to the worker's pop
+  batcher.round        one pass of the worker's loop that had work
+  stream.first_chunk   a stream's pop to its first chunk in the client's queue
+  stream.chunk         each later chunk
+  stream.frontend, stream.encode (device too), stream.decode (device too,
+  each K1 chunk), stream.vocode (device too, each window), stream.fetch
+                       the parts of a stream's chunks
+  batch.call           one synthesize_batch (a fused /tts batch), with
+  batch.frontend, batch.dispatch, batch.acoustic (device too),
+  batch.vocode (device too), batch.fetch
+
+and the counters batcher.rounds, batcher.admitted, stream.k1_steps,
+stream.frames_returned, stream.overflow_restarts, batch.overflow_reruns,
+batch.rows_padded, batch.frames_decoded and batch.frames_returned.
+Without --trace nothing is recorded (one flag read at each boundary).
 
 Runs on the CUDA card unless --device cpu is given.  The checkpoints are the
 training directories of `train_acoustic` and `train_vocoder` (the latest
@@ -194,10 +216,13 @@ def parse_args(argv=None):
                    help="build the kernels and run every bucket before accepting traffic")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain versions)")
+    p.add_argument("--trace", action="store_true",
+                   help="record the serving path's spans and counters; /healthz carries them")
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    from . import tracing
     from .config import default_config, load_config
     from .pipeline import build_pipeline
     from .serving import DynamicBatcher
@@ -225,6 +250,7 @@ def main(argv=None):
             pass
     server = make_server(batcher, args.host, args.port, cfg.audio.sample_rate,
                          args.request_timeout)
+    tracing.enable(args.trace)  # after the warm-up, so only served requests are recorded
     print(f"[serve] serving on http://{args.host}:{server.server_address[1]}  "
           f"(max_batch={args.max_batch}, wait={args.max_wait_ms}ms)", flush=True)
     try:

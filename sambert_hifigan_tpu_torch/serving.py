@@ -26,6 +26,12 @@ the pipeline, so one thread feeds the card.  A pipeline over several cards
 this same thread.  PyTorch's grad mode is per
 thread: the pipeline's entry points turn it off themselves, so the worker's
 outputs never carry autograd state.
+
+Tracing (`tracing.py`, on under the profiler or `tracing.enable`): each
+request's queue wait from its put to the batch that takes it, each round
+of the worker that had work, and each stream chunk from the worker's
+advance to the put in the client's queue (the first from the pop, so it
+holds the round's earlier work); `stats()["trace"]` gives the aggregates.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import tracing
+
 
 @dataclass
 class _Request:
@@ -47,6 +55,7 @@ class _Request:
     wav: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
     cancelled: bool = False  # set by a timed-out caller; worker drops it
+    trace: Optional[tracing.Handoff] = None  # stamped at the put while tracing is on
 
 
 @dataclass
@@ -60,6 +69,8 @@ class _StreamRequest:
     stream_kwargs: Dict[str, Any]
     chunks: "queue.Queue" = field(default_factory=queue.Queue)
     cancelled: bool = False  # caller gone (timeout / generator closed)
+    trace: Optional[tracing.Handoff] = None  # stamped at the put, again at the pop
+    started: bool = False  # the first chunk has been asked for
 
 
 _SHUTDOWN = object()  # _take_batch's translation of the close() sentinel
@@ -116,6 +127,7 @@ class DynamicBatcher:
                 ("pitch_shift", float(pitch_shift)),
                 ("energy_scale", float(energy_scale)),
             ),
+            trace=tracing.handoff(),
         )
         self._queue.put(req)
         if not req.done.wait(timeout):
@@ -161,6 +173,7 @@ class DynamicBatcher:
                 "chunk_frames": int(chunk_frames),
                 "context_frames": int(context_frames),
             },
+            trace=tracing.handoff(),
         )
         self._queue.put(req)
 
@@ -220,6 +233,8 @@ class DynamicBatcher:
         first = self._next_request(timeout=None if block else 0)
         if first is None:
             return _SHUTDOWN
+        # a request's wait ends when a batch takes it (a held leftover waits on)
+        tracing.leg(first.trace, "batcher.queue_wait")
         if isinstance(first, _StreamRequest):
             return first
         batch = [first]
@@ -238,6 +253,7 @@ class DynamicBatcher:
             if isinstance(req, _StreamRequest) or req.controls != first.controls:
                 self._leftover = req
                 break
+            tracing.leg(req.trace, "batcher.queue_wait")
             batch.append(req)
         return batch
 
@@ -265,17 +281,24 @@ class DynamicBatcher:
             it.close()  # consumer timed out or closed: stop decoding for it
             self._finish_stream()
             return False
-        try:
-            chunk = next(it)
-        except StopIteration:
-            req.chunks.put(("done", None))
-            self._finish_stream()
-            return False
-        except BaseException as e:  # noqa: BLE001 — routed to the caller
-            req.chunks.put(("error", e))
-            self._finish_stream()
-            return False
-        req.chunks.put(("chunk", chunk))
+        first, req.started = not req.started, True
+        h = req.trace
+        # the first chunk's span starts at the pop, so it holds the round's
+        # earlier work too
+        with tracing.span("stream.first_chunk" if first else "stream.chunk",
+                          h and h.req, h.t_ns if h and first else None) as sp:
+            try:
+                chunk = next(it)
+            except StopIteration:
+                sp.discard()  # the generator's end: no chunk
+                req.chunks.put(("done", None))
+                self._finish_stream()
+                return False
+            except BaseException as e:  # noqa: BLE001 — routed to the caller
+                req.chunks.put(("error", e))
+                self._finish_stream()
+                return False
+            req.chunks.put(("chunk", chunk))
         with self._stats_lock:
             self.stream_chunks += 1
         return True
@@ -326,24 +349,29 @@ class DynamicBatcher:
                 # popped; drain live streams, then stop
                 closing = True
                 work = None
-            if isinstance(work, _StreamRequest):
-                it = self._open_stream(work)
-                if it is not None:
-                    streams.append((work, it))
-                work = None
-            streams = [s for s in streams if self._advance_stream(*s)]
-            with self._stats_lock:
-                self._active_streams = len(streams)
-            if work:
-                self._run_batch(work, interleaved=bool(streams))
-            if closing and not streams:
+            if work is None and not streams:  # closing, and no stream is live
                 return
+            with tracing.span("batcher.round", start_ns=_popped(work)):
+                if isinstance(work, _StreamRequest):
+                    it = self._open_stream(work)
+                    if it is not None:
+                        streams.append((work, it))
+                        tracing.count("batcher.admitted")
+                    work = None
+                streams = [s for s in streams if self._advance_stream(*s)]
+                with self._stats_lock:
+                    self._active_streams = len(streams)
+                if work:
+                    self._run_batch(work, interleaved=bool(streams))
+            tracing.count("batcher.rounds")
 
     # ---- observability -------------------------------------------------------
 
     def stats(self) -> Dict[str, Any]:
+        """The batcher's counters; with "trace", `tracing.snapshot()`, once
+        tracing has recorded anything."""
         with self._stats_lock:
-            return {
+            out = {
                 "batches_run": self.batches_run,
                 "requests_served": self.requests_served,
                 "streams_served": self.streams_served,
@@ -357,7 +385,17 @@ class DynamicBatcher:
                 "batches_interleaved": self.batches_interleaved,
                 "active_streams": self._active_streams,
             }
+        if tracing.recorded():
+            out["trace"] = tracing.snapshot()
+        return out
 
 
 def _now() -> float:
     return time.monotonic()
+
+
+def _popped(work) -> Optional[int]:
+    """When the request that leads `work` was popped, if it was traced: a
+    round starts there, so the first chunk's span nests inside it."""
+    h = getattr(work[0] if isinstance(work, list) else work, "trace", None)
+    return h.t_ns if h else None

@@ -7,6 +7,7 @@ pipeline on the CPU (small config), through HTTP, and the server's command
 line.
 """
 
+import contextlib
 import json
 import threading
 import time
@@ -597,10 +598,12 @@ class TestPortPipelineOverHTTP:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--port", "0"])
 
-    def test_serve_command_line_on_cpu(self, tmp_path):
-        """`python -m sambert_hifigan_tpu_torch.serve --device cpu` (narrow
-        widths from a model config) answers /healthz and /tts, and stops on
-        SIGINT."""
+    @staticmethod
+    @contextlib.contextmanager
+    def _serve_cli(tmp_path, *flags):
+        """`python -m sambert_hifigan_tpu_torch.serve --device cpu` at narrow
+        widths (a model config) with `flags`: yields its URL once it serves,
+        then stops it with SIGINT and holds it to exit 0."""
         import signal
         import subprocess
         import sys
@@ -617,7 +620,7 @@ class TestPortPipelineOverHTTP:
         proc = subprocess.Popen(
             [sys.executable, "-m", "sambert_hifigan_tpu_torch.serve", "--device", "cpu",
              "--port", "0", "--max-wait-ms", "1", "--config", str(repo / "configs/config.yaml"),
-             "--model-config", str(small)],
+             "--model-config", str(small), *flags],
             cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         try:
@@ -626,15 +629,43 @@ class TestPortPipelineOverHTTP:
                 line = proc.stdout.readline()
                 assert line, "".join(lines)
                 lines.append(line)
-            url = lines[-1].split()[3]
+            yield lines[-1].split()[3]
+        finally:
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=60)
+        assert proc.returncode == 0
+
+    def test_serve_command_line_on_cpu(self, tmp_path):
+        """`python -m sambert_hifigan_tpu_torch.serve --device cpu` (narrow
+        widths from a model config) answers /healthz and /tts, and stops on
+        SIGINT; without --trace /healthz carries no "trace"."""
+        with self._serve_cli(tmp_path) as url:
             with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
-                assert json.loads(resp.read())["ok"] is True
+                health = json.loads(resp.read())
+            assert health["ok"] is True
             req = urllib.request.Request(f"{url}/tts",
                                          data=json.dumps({"text": "你好"}).encode())
             with urllib.request.urlopen(req, timeout=120) as resp:
                 body = resp.read()
             assert body[:4] == b"RIFF" and len(body) > 44
-        finally:
-            proc.send_signal(signal.SIGINT)
-            proc.wait(timeout=60)
-        assert proc.returncode == 0
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+                assert "trace" not in json.loads(resp.read())
+
+    def test_serve_trace_flag_puts_the_trace_in_healthz(self, tmp_path):
+        """`serve --trace`: after a /tts and a /tts/stream, /healthz carries
+        the batcher's, the stream's and the batch's spans and counters."""
+        with self._serve_cli(tmp_path, "--trace") as url:
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+                assert "trace" not in json.loads(resp.read())  # nothing served yet
+            for path in ("/tts", "/tts/stream"):
+                req = urllib.request.Request(f"{url}{path}",
+                                             data=json.dumps({"text": "你好"}).encode())
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    assert resp.read()[:4] == b"RIFF"
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+                trace = json.loads(resp.read())["trace"]
+        assert {"batcher.queue_wait", "batcher.round", "batch.call", "stream.first_chunk",
+                "stream.encode"} <= set(trace["spans"])
+        assert trace["spans"]["batcher.queue_wait"]["n"] == 2
+        assert trace["counters"]["batch.frames_returned"] > 0
+        assert trace["counters"]["stream.frames_returned"] > 0

@@ -1,5 +1,5 @@
 """The port's tooling against the JAX package's, float32 on the CPU, at small
-sizes: shape debugging, the width-scaling config and the FLOP count, the demo
+sizes: shape debugging, the width-scaling config and the FLOP counts, the demo
 corpus (byte for byte), the plot panels, the two demos, the encode split,
 the decode modes, the profiler's five surfaces and the demo evaluation.
 
@@ -66,7 +66,7 @@ from tests.test_torch_vocoder_train import Pair
 REPO = Path(__file__).resolve().parent.parent
 TOOLS = ["profiling", "utils.debug", "bench_decode_modes", "bench_encode_split",
          "bench_scaling", "plot_audio", "make_demo_dataset", "demo_ablation_modes",
-         "demo_feature_matching_loss", "eval_demo_run", "dryrun", "bench"]
+         "demo_feature_matching_loss", "eval_demo_run", "dryrun"]
 
 
 # ---- entry points -----------------------------------------------------------------
@@ -186,6 +186,51 @@ def test_acoustic_step_flops_against_flop_counter():
         make_acoustic_step(cfg)(state, batch, torch.Generator().manual_seed(1))
     counted = counter.get_total_flops()
     assert abs(acoustic_step_flops(cfg, 2, 16, 64) / counted - 1) <= 0.02
+
+
+def _conv_backward_by_groups(grad_out_shape, x_shape, w_shape, bias, stride, padding,
+                             dilation, transposed, output_padding, groups, output_mask,
+                             out_shape=None, **kwargs):
+    """torch's convolution_backward count, except the weight gradient of a
+    grouped conv: torch's formula leaves the groups out there and counts it
+    `groups` times; a weight gradient costs its forward's FLOPs."""
+    from torch.utils.flop_counter import conv_backward_flop, conv_flop_count
+
+    flops = conv_backward_flop(grad_out_shape, x_shape, w_shape, bias, stride, padding,
+                               dilation, transposed, output_padding, groups,
+                               [output_mask[0], False, False], out_val=out_shape)
+    if output_mask[1]:
+        flops += conv_flop_count(x_shape, w_shape, grad_out_shape, transposed)
+    return flops
+
+
+def test_vocoder_step_flops_against_flop_counter():
+    """The analytic count against FlopCounterMode on one f32 adv_mel_fm
+    step (generator 32 channels with one ResBlock of dilations (1, 3),
+    discriminators at 1/16 width, B = 2, 8-frame segments): within 2%.
+    The counter takes torch's formulas but for grouped weight gradients
+    (the MSD's convs), which torch's formula counts `groups` times
+    (measured: equal, here and at the default config at B = 1)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sambert_hifigan_tpu_torch.flops import vocoder_step_flops
+    from sambert_hifigan_tpu_torch.training.vocoder_trainer import (init_vocoder_state,
+                                                                    make_vocoder_step)
+
+    cfg = dataclasses.replace(pcfg.default_config(), vocoder=pcfg.VocoderConfig(
+        generator=pcfg.GeneratorConfig(upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                                       resblock_dilation_sizes=((1, 3),)),
+        discriminator=pcfg.DiscriminatorConfig(channel_div=16)))
+    b, seg = 2, 8
+    state = init_vocoder_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    mel = torch.tensor(rng.standard_normal((b, 80, seg)), dtype=torch.float32)
+    wav = torch.tensor(rng.standard_normal((b, 1, seg * 256)) * 0.1, dtype=torch.float32)
+    mapping = {torch.ops.aten.convolution_backward: _conv_backward_by_groups}
+    with FlopCounterMode(display=False, custom_mapping=mapping) as counter:
+        make_vocoder_step(cfg, loss_mode="adv_mel_fm")(state, mel, wav)
+    counted = counter.get_total_flops()
+    assert abs(vocoder_step_flops(cfg, b, seg) / counted - 1) <= 0.02, counted
 
 
 def test_bench_scaling_rows_on_the_cpu():
