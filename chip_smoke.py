@@ -7,7 +7,9 @@ Builds the hand-written CUDA kernels from `sambert_hifigan_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the full default
 width (K1 at B = 1, 4 and 16, at B = 16 over the largest frame bucket, which
 takes two clusters, and at the main path's own shape: the texts' frame bucket
-and each row's valid frames, from the pipeline; K2 also on a 5-frame
+and each row's valid frames, from the pipeline, without lengths and, as the
+main path calls it, with each row's length, the frames past it exactly 0; K2
+also on a 5-frame
 utterance, shorter than its halo), reports each K2 stage's TFLOP/s and share
 of its bound and K1's per-step stream bound, then drives the one-shot text ->
 wav path (`synthesize_batch`, `synthesize`) of a pipeline with random
@@ -203,45 +205,58 @@ def k1_inputs(cfg, b: int, t: int, valid, gen, dev):
     return w, mk.bfloat16().contiguous(), mv.bfloat16().contiguous(), bias
 
 
-def k1_memory_rows(bias) -> int:
-    """Memory frames the decode needs, summed over rows: the unmasked ones
-    (a masked frame adds exactly 0 to every sum), or all of a row's frames
-    when it has none (its softmax is uniform)."""
+def k1_memory_rows(bias) -> list:
+    """Memory frames each row's decode needs: the unmasked ones (a masked
+    frame adds exactly 0 to every sum), or all of a row's frames when it has
+    none (its softmax is uniform)."""
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
 
     valid = (bias > k1.MASKED).sum(dim=1)
-    return int(sum(n if n else bias.shape[1] for n in valid.tolist()))
+    return [n if n else bias.shape[1] for n in valid.tolist()]
 
 
-def k1_work(w, mk, bias, t: int):
+def k1_steps(b: int, t: int, lengths) -> list:
+    """Steps each row keeps: its length within T, or T without lengths."""
+    return [t] * b if lengths is None else [min(int(n), t) for n in lengths.tolist()]
+
+
+def k1_work(w, mk, bias, t: int, lengths=None):
     """(bytes, flops) of one decode: every input it needs read once (the
-    memory K/V of the frames the data leaves unmasked), the mel written once;
-    dense products per step and row plus the attention over the cache and
-    those frames."""
+    memory K/V of the frames the data leaves unmasked), the kept mel frames
+    written once; dense products per kept step and row plus the attention
+    over the cache and those frames."""
     L, b, s, d = mk.shape
     n_mels = w.mel_w.shape[1]
-    weights = nbytes(*w.matrices, *w.vectors) - nbytes(w.pe) + t * d * 4
-    rows = k1_memory_rows(bias)
-    moved = weights + 2 * L * rows * d * mk.element_size() + b * s * 4 + b * t * n_mels * 4
+    keep = k1_steps(b, t, lengths)
+    mem = k1_memory_rows(bias)
+    weights = nbytes(*w.matrices, *w.vectors) - nbytes(w.pe) + max(keep) * d * 4
+    moved = (weights + 2 * L * sum(mem) * d * mk.element_size() + b * s * 4
+             + sum(keep) * n_mels * 4)
     params = sum(m.numel() for m in w.matrices)
-    attn = L * 4 * d * (b * t * (t + 1) // 2 + t * rows)
-    return moved, b * 2 * params * t + attn
+    attn = L * 4 * d * sum(n * (n + 1) // 2 + n * m for n, m in zip(keep, mem))
+    return moved, 2 * params * sum(keep) + attn
 
 
-def k1_stream_ms(w, mk, bias, t: int) -> float:
-    """What a step must read, weights once for all rows plus the needed
-    memory K/V and the self-attention caches (t + 1 rows, averaged over the
-    steps), over the card's memory rate, for the whole decode: the floor for
-    a decode whose weights and K/V come from device memory at every step."""
+def k1_stream_ms(w, mk, bias, t: int, lengths=None) -> float:
+    """What the steps must read, weights once a step for all rows plus each
+    kept row's needed memory K/V and self-attention cache (t + 1 rows at
+    step t), over the card's memory rate, for the whole decode: the floor
+    for a decode whose weights and K/V come from device memory at every
+    step."""
     from sambert_hifigan_tpu_torch.flops import HBM_BYTES_PER_S
 
     L, b, s, d = mk.shape
-    per_step = (nbytes(*w.matrices) + 2 * L * k1_memory_rows(bias) * d * mk.element_size()
-                + 2 * L * b * (t + 1) / 2 * d * mk.element_size())
-    return t * per_step / HBM_BYTES_PER_S * 1e3
+    keep = k1_steps(b, t, lengths)
+    kv = sum(n * m + n * (n + 1) / 2 for n, m in zip(keep, k1_memory_rows(bias)))
+    total = max(keep) * nbytes(*w.matrices) + 2 * L * kv * d * mk.element_size()
+    return total / HBM_BYTES_PER_S * 1e3
 
 
-def phase_k1(cfg, shapes, dev, gen):
+def phase_k1(cfg, shapes, dev, gen, with_lengths=()):
+    """K1 against its plain version at each shape, timed, without lengths;
+    for the shapes named in `with_lengths` also a row `<name>-lengths` that
+    hands both each row's valid frames as its length (the main path's call),
+    held to the same tolerance."""
     import torch
 
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
@@ -249,34 +264,47 @@ def phase_k1(cfg, shapes, dev, gen):
     rows = {}
     for name, b, t, valid in shapes:
         w, mk, mv, bias = k1_inputs(cfg, b, t, valid, gen, dev)
-        t0 = time.perf_counter()
-        out = k1.ar_decode(w, mk, mv, bias, t)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ref = k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t)[1]
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = (out - ref).abs()
-        finite = bool(torch.isfinite(out).all())
-        ms = cuda_ms(lambda: k1.ar_decode(w, mk, mv, bias, t), reps=2)
-        moved, flops = k1_work(w, mk, bias, t)
-        bms, by = bound_ms(moved, flops)
-        plan = k1.launch_plan(b, t, t, mk.shape[0], mk.shape[3], w.n_heads, w.w1.shape[-1],
-                              w.mel_w.shape[1], w.pe.shape[0])
-        row = dict(shape=name, B=b, T=t, valid=valid, max_abs_err=err.max().item(),
-                   mean_abs_err=err.mean().item(), ref_mean_abs=ref.abs().mean().item(), ms=ms,
-                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   stream_bound_ms=k1_stream_ms(w, mk, bias, t),
-                   plan=dict(cluster=plan.cluster, rows=plan.rows, groups=plan.groups,
-                             stages=plan.stages, smem=plan.smem),
-                   first_call_s=first_s)
-        log("[k1]", json.dumps(row))
-        if not finite:
-            raise AssertionError(f"K1 B={b} T={t}: non-finite output")
-        if not (row["mean_abs_err"] < K1_TOL_MEAN and row["max_abs_err"] < K1_TOL_MAX):
-            raise AssertionError(f"K1 B={b} T={t} outside tolerance: {row}")
-        rows[name] = row
+        runs = [(name, None)]
+        if name in with_lengths:
+            lengths = torch.tensor([valid.get(r, t) for r in range(b)], dtype=torch.int32,
+                                   device=dev)
+            runs.append((f"{name}-lengths", lengths))
+        for label, lengths in runs:
+            t0 = time.perf_counter()
+            out = k1.ar_decode(w, mk, mv, bias, t, lengths)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t, lengths)[1]
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            keep = k1_steps(b, t, lengths)
+            kept = torch.arange(t, device=dev)[None, :] < torch.tensor(keep, device=dev)[:, None]
+            err = (out - ref).abs()[kept]
+            zeros = not out[~kept].any()
+            finite = bool(torch.isfinite(out).all())
+            ms = cuda_ms(lambda: k1.ar_decode(w, mk, mv, bias, t, lengths), reps=2)
+            moved, flops = k1_work(w, mk, bias, t, lengths)
+            bms, by = bound_ms(moved, flops)
+            plan = k1.launch_plan(b, t, t, mk.shape[0], mk.shape[3], w.n_heads,
+                                  w.w1.shape[-1], w.mel_w.shape[1], w.pe.shape[0])
+            row = dict(shape=label, B=b, T=t, valid=valid,
+                       lengths=None if lengths is None else keep, steps=max(keep),
+                       max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                       ref_mean_abs=ref.abs()[kept].mean().item(), zeros_past_lengths=zeros,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       stream_bound_ms=k1_stream_ms(w, mk, bias, t, lengths),
+                       plan=dict(cluster=plan.cluster, rows=plan.rows, groups=plan.groups,
+                                 stages=plan.stages, smem=plan.smem),
+                       first_call_s=first_s)
+            log("[k1]", json.dumps(row))
+            if not finite:
+                raise AssertionError(f"K1 {label}: non-finite output")
+            if not zeros:
+                raise AssertionError(f"K1 {label}: frames past a row's length are not 0")
+            if not (row["mean_abs_err"] < K1_TOL_MEAN and row["max_abs_err"] < K1_TOL_MAX):
+                raise AssertionError(f"K1 {label} outside tolerance: {row}")
+            rows[label] = row
     return rows
 
 
@@ -2557,7 +2585,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     pipe = build_pipeline_from_random_init(cfg, seed=0)
     main_shape = main_path_shape(pipe)
-    k1_rows = phase_k1(cfg, K1_SHAPES + (main_shape,), dev, gen)
+    k1_rows = phase_k1(cfg, K1_SHAPES + (main_shape,), dev, gen, with_lengths=("main-path",))
     if k1_rows["B16-T2048"]["plan"]["groups"] < 2:
         raise AssertionError("K1 at B=16, T=2048 ran on one cluster, not two")
     k2_rows = phase_k2(pipe, 1024, (1, 2, 4), gen, dev)
@@ -2575,7 +2603,7 @@ def main() -> int:
     mesh_row = phase_mesh(pipe, dev)
     bf16_row = phase_bf16(pipe)
 
-    k1_main = k1_rows["main-path"]
+    k1_main, k1_full = k1_rows["main-path-lengths"], k1_rows["main-path"]
     k2_main = [k2_rows[(i, 4)] for i in range(len(pipe.mrf_weights))]
     kernels_line = {"kernels": [
         {"name": "ar_decode", "route": "cuda",
@@ -2593,6 +2621,8 @@ def main() -> int:
          "max_abs_err": k1_main["max_abs_err"],
          "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
+         "steps": k1_main["steps"], "ms_no_lengths": k1_full["ms"],
+         "bound_ms_no_lengths": k1_full["bound_ms"],
          "library_ms": None},
         {"name": "mrf", "route": "cuda",
          "source": "sambert_hifigan_tpu_torch/csrc/mrf.cu",
@@ -2614,7 +2644,9 @@ def main() -> int:
          "library_ms": sum(r["library_ms"] for r in k2_main)},
     ]}
     log(f"[kernels] K1 at the main path's shape (B={k1_main['B']}, T=S={k1_main['T']}, "
-        f"valid frames {list(k1_main['valid'].values())}); K2 summed over the four stages "
+        f"valid frames {list(k1_main['valid'].values())}), told each row's length as the "
+        f"main path tells it, so it stops at step {k1_main['steps']}; ms_no_lengths: the same "
+        "inputs decoded to T; K2 summed over the four stages "
         "at B=4, T=1024 frames (one vocode of the main path); launches_stream: the "
         "launches of one stream(TEXTS[0]); launches_train: phase 7's (12 train steps, "
         "then one vocode of the trained generator); launches_acoustic_train: phase 8's "

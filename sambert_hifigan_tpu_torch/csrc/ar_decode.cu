@@ -16,11 +16,24 @@
 // the chunk (the f32 value the previous chunk's mel exchange held).  The
 // caches persist between chunks in device memory: a chunk reads rows 0..t
 // and writes row t, so chained chunks run the same steps as one launch.
-// with the Pallas kernel's rounding points: bf16 weights and matmul inputs,
+// It rounds where the Pallas kernel does: bf16 weights and matmul inputs,
 // f32 accumulation, q scaled by 1/sqrt(dh) before its bf16 cast, each q*k
 // product rounded to bf16 before the sum over the head, f32 softmax whose
 // probabilities are cast to bf16 before the value product, f32 LayerNorm,
 // f32 residual stream.
+//
+// Row lengths (optional, an int32 [B] on the device, read by the kernel so
+// that the host never learns them before the decode): row b keeps frames
+// t < lengths[b], and a (row, step) at or past its length does no work.
+// Frame t depends only on frames before it, so every kept frame has the
+// bits of the decode without lengths.  Every CTA of a cluster computes the
+// same step bound, the largest min(lengths[b], pos0 + steps) over its group's
+// rows, and ends its step loop there, so the cluster's exchanges stay
+// matched; groups stop independently.  Inside the loop a finished row keeps
+// its place in the products (M stays 16) and in every exchange, but scores
+// no key (its attention output is zero: no sum is divided), writes no K/V
+// cache row, and its mel is written as 0.  Frames of the steps past the
+// bound are written as 0.  Without lengths every row keeps every step.
 //
 // What bounds it on this card.  The T x L chain is serial, so a step's work
 // is what one group of SMs can draw and how often it must wait.  At the
@@ -122,6 +135,7 @@ struct Params {
   bf16* kcache;  // [L, B, T, D]: T is the capacity
   bf16* vcache;
   float* out;  // [B, steps, NMEL]
+  const int* lengths;  // [B] frames each row keeps, or null: every step
   int stride, B, T, S, L, D, H, FF, NMEL;
   int pos0, steps;  // this launch's first step and number of steps
   int C, R, NS;  // cluster size, batch rows per cluster, ring stages
@@ -486,6 +500,7 @@ struct Cta {
   int D, H, C;  // compile-time constants in the kernel's common instantiation
   int rank, R, nr, b0;
   int xc;  // exchanges done
+  unsigned live;  // bit r: row r is below its length at this step
   __device__ float* xbuf(int i) const {
     return reinterpret_cast<float*>(smem + ((i & 1) ? y.xb1 : y.xb0));
   }
@@ -615,7 +630,7 @@ __device__ __forceinline__ float* attention(Cta& c, bool self, int t, const bf16
                                      : ntile * KEY_TILE;
     }
   }
-  auto nkeys = [&](int r) { return self ? nself : mkeys[r]; };
+  auto nkeys = [&](int r) { return (c.live >> r & 1) ? (self ? nself : mkeys[r]) : 0; };
   auto key_of = [&](int r, int li) {
     const int j = self ? (li / KEY_TILE) * C + rank : mt[r * mtiles + li / KEY_TILE];
     return j * KEY_TILE + li % KEY_TILE;
@@ -776,6 +791,12 @@ __global__ void __launch_bounds__(NT, 1) ar_decode_kernel(Params p) {
   int* mt = reinterpret_cast<int*>(c.xbar + 2);
   int* mkeys = mt + R * mtiles;
   const float sqrt_dh = sqrtf((float)(D / c.H));
+  // lane r < nr of every warp holds the steps row r runs in this launch; the
+  // step bound is their largest, the same in every CTA of the cluster
+  int keep = 0;
+  if (lane < nr)
+    keep = p.lengths ? imin(p.lengths[c.b0 + lane], p.pos0 + p.steps) : p.pos0 + p.steps;
+  const int t_end = imax(p.pos0, __reduce_max_sync(0xffffffffu, keep));
 
   // LayerNorm parameters of every layer and this CTA's bias slices, kept in
   // shared memory: vln [L][3][2][D], then per layer [bqkv | bo | bcq | bco |
@@ -857,7 +878,8 @@ __global__ void __launch_bounds__(NT, 1) ar_decode_kernel(Params p) {
   cluster_sync();  // every peer runs before anyone writes to its shared memory
 
   int c0, n;
-  for (int t = p.pos0; t < p.pos0 + p.steps; ++t) {
+  for (int t = p.pos0; t < t_end; ++t) {
+    c.live = __ballot_sync(0xffffffffu, t < keep);
     const float pe_c = p.pe[(size_t)t * D + tid % D];  // used after the prenet
     // prenet: A = bf16(prev mel): the last exchange's, the carried frame at
     // the chunk's first step, zero at t = 0
@@ -909,6 +931,7 @@ __global__ void __launch_bounds__(NT, 1) ar_decode_kernel(Params p) {
         const bf16* kvi = reinterpret_cast<const bf16*>(c.xin()) + R * D;
         for (int e = tid; e < nr * (2 * D / 8); e += NT) {
           const int r = e / (2 * D / 8), c8 = (e % (2 * D / 8)) * 8;
+          if (!(c.live >> r & 1)) continue;
           const uint4 v = *reinterpret_cast<const uint4*>(kvi + r * 2 * D + c8);
           bf16* to = (c8 < D ? kc + c8 : vc + c8 - D) + r * cache_row + (size_t)t * D;
           *reinterpret_cast<uint4*>(to) = v;
@@ -962,9 +985,19 @@ __global__ void __launch_bounds__(NT, 1) ar_decode_kernel(Params p) {
               push2(c, dst, p.NMEL, r, c0 + col, v, k);
               if (k == 0)
                 *reinterpret_cast<float2*>(
-                    p.out + ((size_t)(c.b0 + r) * p.steps + t - p.pos0) * p.NMEL + c0 + col) = v;
+                    p.out + ((size_t)(c.b0 + r) * p.steps + t - p.pos0) * p.NMEL + c0 + col) =
+                    (c.live >> r & 1) ? v : make_float2(0.f, 0.f);
             });
     c.sync(nr * p.NMEL * 4);
+  }
+  // the steps past the bound: this CTA's columns of their frames are 0
+  col_split(p.NMEL, rank, C, c0, n);
+  const int rest = p.pos0 + p.steps - t_end;
+  for (int e = tid; e < nr * rest * (n / 2); e += NT) {
+    const int r = e / (rest * (n / 2)), i = e - r * (rest * (n / 2)), s = i / (n / 2);
+    *reinterpret_cast<float2*>(p.out + ((size_t)(c.b0 + r) * p.steps + t_end - p.pos0 + s) *
+                                           p.NMEL + c0 + 2 * (i - s * (n / 2))) =
+        make_float2(0.f, 0.f);
   }
   for (int i = g.consumed; i < g.issued; ++i) mbar_wait(bars + i % g.NS, (i / g.NS) & 1);
   cluster_sync();  // no peer still sends to this CTA
@@ -981,14 +1014,15 @@ extern "C" const char* error_string(int err) {
 // ring stages and stage bytes, shared memory per CTA) comes from
 // ops/ar_decode.py's launch_plan and is checked here against this file's own
 // layout.  The launch decodes steps [pos0, pos0 + steps) of the T the caches
-// hold; a chunk outside [0, T) is refused.  Returns 0, a cudaError_t, or
+// hold, each row up to its length where `lengths` is not null; a chunk
+// outside [0, T) is refused.  Returns 0, a cudaError_t, or
 // UNSCHEDULABLE when cudaOccupancyMaxActiveClusters finds no place for one
 // cluster.
 extern "C" int ar_decode_launch(
     const void* stream, const void* pb1, const void* pb2, const void* bqkv, const void* bo,
     const void* bcq, const void* bco, const void* b1, const void* b2, const void* ln,
     const void* melb, const void* pe, const void* memk, const void* memv, const void* membias,
-    const void* prev, void* kcache, void* vcache, void* out,
+    const void* prev, void* kcache, void* vcache, void* out, const void* lengths,
     int stride, int B, int T, int S, int L, int D, int H, int FF, int NMEL, int pos0, int steps,
     int C, int R, int groups, int key_tile, int stages, int stage_bytes, int smem,
     void* cuda_stream) {
@@ -1008,6 +1042,7 @@ extern "C" int ar_decode_launch(
   p.kcache = static_cast<bf16*>(kcache);
   p.vcache = static_cast<bf16*>(vcache);
   p.out = static_cast<float*>(out);
+  p.lengths = static_cast<const int*>(lengths);
   p.stride = stride; p.B = B; p.T = T; p.S = S; p.L = L; p.D = D; p.H = H; p.FF = FF; p.NMEL = NMEL;
   p.pos0 = pos0; p.steps = steps;
   p.C = C; p.R = R; p.NS = stages;

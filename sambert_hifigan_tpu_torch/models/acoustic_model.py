@@ -115,8 +115,10 @@ def acoustic_inference(
 ) -> AcousticOutput:
     """Predicted durations + autoregressive mel generation of `max_frames`
     frames over the packed decoder weights (`pack_decoder`); frames beyond
-    each sample's predicted total are zeroed.  The encode computes in
-    `dtype` and the mel comes back in it."""
+    each sample's predicted total are zeroed.  The decode reads the totals
+    on the device and stops each row there (no host sync); the mask still
+    zeroes every frame past them.  The encode computes in `dtype` and the
+    mel comes back in it."""
     va = model.encode(
         ph_ids, tone_ids, boundary_ids, max_frames, phoneme_mask,
         duration_scale, pitch_shift, energy_scale, dtype=dtype,
@@ -124,6 +126,7 @@ def acoustic_inference(
     mel = ar_decode(
         model.ar_decoder, va.hvar, max_frames,
         memory_key_padding_mask=~va.frame_mask, weights=decode_weights,
+        lengths=va.total_frames.clamp(max=max_frames).to(torch.int32),
     )
     mel = mel * va.frame_mask[:, :, None].to(mel.dtype)
     return AcousticOutput(mel, va.frame_mask, va.total_frames, va.predictions)

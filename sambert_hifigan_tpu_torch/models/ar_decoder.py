@@ -9,7 +9,9 @@ per utterance, in hvar's dtype (`precompute_memory_packed`,
 decodes every frame in one call; a stream calls `ar_decode_chunk` from
 `init_packed_carry`, chunk after chunk, with the same bits.  Both route
 every CUDA tensor to the K1 kernel (ops/ar_decode.py) and every CPU tensor
-to its plain version; a shape the kernel does not take raises.
+to its plain version; a shape the kernel does not take raises.  Both take
+each row's length as a device tensor (`lengths`): the decode stops at the
+longest row and does no work for a row past its own, whose frames are 0.
 
 Training is teacher forcing (`PNCAARDecoder.forward`): the ground-truth mel
 shifted right by a zero frame goes through the prenet (with dropout), the
@@ -184,10 +186,11 @@ def init_packed_carry(weights: DecodeWeights, batch: int, max_len: int) -> Decod
 @torch.no_grad()
 def ar_decode_chunk(
     weights: DecodeWeights, memory: DecodeMemory, carry: DecodeCarry, pos0: int, chunk: int,
+    lengths: Optional[torch.Tensor] = None,  # [B] int32: the frames each row keeps
 ) -> Tuple[DecodeCarry, torch.Tensor]:
     """Advance the decode by `chunk` frames from `carry` at position `pos0`
     -> (carry', mel [B, chunk, n_mels] f32).  One K1 launch on the card."""
-    return k1.ar_decode_chunk(weights, *memory, carry, pos0, chunk)
+    return k1.ar_decode_chunk(weights, *memory, carry, pos0, chunk, lengths)
 
 
 @torch.no_grad()
@@ -198,8 +201,9 @@ def ar_decode(
     memory_key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] True = pad
     *,
     weights: DecodeWeights,  # pack_decoder(dec, ...)
+    lengths: Optional[torch.Tensor] = None,  # [B] int32: the frames each row keeps
 ) -> torch.Tensor:
     """Autoregressive mel generation -> [B, max_len, n_mels] in hvar's
     dtype: the kernel's f32 mel, cast as the JAX decode casts its output."""
     return k1.ar_decode(weights, *decode_memory(dec, hvar, memory_key_padding_mask, weights),
-                        max_len).to(hvar.dtype)
+                        max_len, lengths).to(hvar.dtype)

@@ -4,7 +4,12 @@
 `pos0` and a carry `(prev_mel, k_cache, v_cache)` (`init_carry`, the JAX
 package's `init_packed_carry`), so a stream decodes chunk by chunk; the
 one-shot `ar_decode` is the single chunk `pos0 = 0, steps = T` from a fresh
-carry.  A CUDA tensor goes to the hand-written kernel in `csrc/ar_decode.cu`
+carry.  Optional `lengths` (int32 [B] on the decode's device) give the
+frames each row keeps: a row does no work at or past its length, its frames
+there are 0 and its cache rows there are not written, and a launch stops at
+its longest row.  Every kept frame has the bits of the decode without
+lengths, and the host never reads them.  A CUDA tensor goes to the
+hand-written kernel in `csrc/ar_decode.cu`
 (or the call raises); a CPU tensor goes to `ar_decode_plain`, the same
 function in plain PyTorch.  There is no switch and no fallback.  The kernel
 is one launch for the whole batch on thread-block clusters; `launch_plan`
@@ -143,11 +148,12 @@ def ar_decode(
     mem_v: torch.Tensor,
     mem_bias: torch.Tensor,  # [B, S] f32: 0 on frames, -1e9 on padding
     max_len: int,
+    lengths: Optional[torch.Tensor] = None,  # [B] int32: the frames each row keeps
 ) -> torch.Tensor:
     """Decode `max_len` frames from a zero start frame -> mel [B, max_len,
     n_mels] f32: one chunk over a fresh carry."""
     carry = init_carry(w, mem_k.shape[1], max_len)
-    return ar_decode_chunk(w, mem_k, mem_v, mem_bias, carry, 0, max_len)[1]
+    return ar_decode_chunk(w, mem_k, mem_v, mem_bias, carry, 0, max_len, lengths)[1]
 
 
 def ar_decode_chunk(
@@ -158,18 +164,21 @@ def ar_decode_chunk(
     carry: DecodeCarry,
     pos0: int,
     steps: int,
+    lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[DecodeCarry, torch.Tensor]:
     """Decode steps pos0 .. pos0 + steps - 1 from `carry` -> (carry', mel
-    [B, steps, n_mels] f32).  Chained chunks give the bits of one decode."""
+    [B, steps, n_mels] f32).  Chained chunks give the bits of one decode.
+    With `lengths`, frames at or past a row's length are 0 (and so is the
+    carried frame of a finished row)."""
     cap = carry.k_cache.shape[2]
     if pos0 < 0 or steps < 1 or pos0 + steps > cap:
         raise ValueError(f"ar_decode_chunk: steps [{pos0}, {pos0 + steps}) outside the "
                          f"carry's capacity [0, {cap})")
     if mem_k.device.type == "cpu":
-        return ar_decode_plain(w, mem_k, mem_v, mem_bias, carry, pos0, steps)
+        return ar_decode_plain(w, mem_k, mem_v, mem_bias, carry, pos0, steps, lengths)
     if mem_k.device.type != "cuda":
         raise ValueError(f"ar_decode: unsupported device {mem_k.device}")
-    return _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry, pos0, steps)
+    return _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry, pos0, steps, lengths)
 
 
 def _rounder(dtype: torch.dtype):
@@ -192,13 +201,15 @@ def _scores(q: torch.Tensor, keys: torch.Tensor, rnd) -> torch.Tensor:
     return rnd(q[:, None] * keys).sum(-1).transpose(1, 2)
 
 
-def ar_decode_plain(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int,
-                    steps: int) -> Tuple[DecodeCarry, torch.Tensor]:
+def ar_decode_plain(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, steps: int,
+                    lengths: Optional[torch.Tensor] = None) -> Tuple[DecodeCarry, torch.Tensor]:
     """Plain PyTorch version of K1: the packed per-frame step in a Python
     loop over steps pos0 .. pos0 + steps - 1, rounding where the kernel
     rounds when the weights are bf16.  The caches hold each K/V row in the
     weights' dtype (bf16 rows are already rounded) and are updated in
-    place."""
+    place.  With `lengths` the loop stops at the longest row; a row's
+    frames at or past its length are 0 and its cache rows there are left
+    as they were."""
     rnd = _rounder(w.wqkv.dtype)
     L, b, s, d = mem_k.shape
     h = w.n_heads
@@ -209,15 +220,22 @@ def ar_decode_plain(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int,
     mv = mem_v.float().reshape(L, b, s, h, dh)
     prev, ck, cv = carry
     bias = mem_bias.float()[:, None, :]
-    out = []
-    for t in range(pos0, pos0 + steps):
+    out = torch.zeros(b, steps, w.mel_w.shape[1], device=mem_k.device)
+    end = pos0 + steps
+    if lengths is not None:
+        end = max(pos0, min(end, int(lengths.max())))
+
+    def keep(t, new, old):  # a finished row keeps what it had
+        return new if lengths is None else torch.where((t < lengths)[:, None], new, old)
+
+    for t in range(pos0, end):
         x = torch.relu(rnd(prev) @ f(w.prenet_w1) + w.prenet_b1)
         x = rnd(x) @ f(w.prenet_w2) + w.prenet_b2 + w.pe[t]
         for l in range(L):
             qkv = rnd(x) @ f(w.wqkv[l]) + w.bqkv[l]
             q, k_t, v_t = qkv.split(d, dim=-1)
-            ck[l, :, t] = rnd(k_t)
-            cv[l, :, t] = rnd(v_t)
+            ck[l, :, t] = keep(t, rnd(k_t), ck[l, :, t].float())
+            cv[l, :, t] = keep(t, rnd(v_t), cv[l, :, t].float())
             qs = rnd(q / sq).reshape(b, h, dh)
             sc = _scores(qs, ck[l, :, : t + 1].float().reshape(b, t + 1, h, dh), rnd)
             p = rnd(torch.softmax(sc, dim=-1))
@@ -232,8 +250,8 @@ def ar_decode_plain(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int,
             hid = torch.relu(rnd(x) @ f(w.w1[l]) + w.b1[l])
             x = _layer_norm(x + rnd(hid) @ f(w.w2[l]) + w.b2[l], w.ln[l, 2])
         prev = rnd(x) @ f(w.mel_w) + w.mel_b
-        out.append(prev)
-    return DecodeCarry(prev, ck, cv), torch.stack(out, dim=1)
+        out[:, t - pos0] = keep(t, prev, out[:, t - pos0])
+    return DecodeCarry(out[:, -1], ck, cv), out
 
 
 class Plan(NamedTuple):
@@ -395,7 +413,8 @@ def _check(cond: bool, msg: str) -> None:
 UNSCHEDULABLE = -2  # ar_decode_launch's code for a cluster the card cannot place
 
 
-def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, steps: int):
+def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, steps: int,
+                    lengths: Optional[torch.Tensor]):
     global launches
     L, b, s, d = mem_k.shape
     prev, kcache, vcache = carry
@@ -423,6 +442,9 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, st
         _check(t.device == dev and t.dtype == bf16 and t.is_contiguous()
                and t.shape == (L, b, max_len, d),
                f"the caches must be contiguous bf16 [{L}, {b}, T, {d}] on {dev}")
+    if lengths is not None:
+        _check(lengths.device == dev and lengths.dtype == torch.int32 and lengths.is_contiguous()
+               and tuple(lengths.shape) == (b,), f"lengths must be contiguous int32 [{b}] on {dev}")
     plan = launch_plan(b, max_len, s, L, d, h, d_ff, n_mels, w.pe.shape[0])
 
     ws = w.stream
@@ -436,7 +458,7 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, st
     ptrs = [t.data_ptr() for t in (
         ws, w.prenet_b1, w.prenet_b2, w.bqkv, w.bo, w.bcq, w.bco, w.b1, w.b2,
         w.ln, w.mel_b, w.pe, mem_k, mem_v, mem_bias, prev, kcache, vcache, out,
-    )]
+    )] + [None if lengths is None else lengths.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ar_decode_launch(

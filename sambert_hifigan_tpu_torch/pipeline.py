@@ -374,7 +374,11 @@ class TTSPipeline:
                 # work is already enqueued; the totals copies then find them drained
                 with tracing.span("batch.fetch"):
                     wav_np = np.concatenate([wav.cpu().numpy() for _, wav in outs])
-                    totals = np.concatenate([out.total_frames.cpu().numpy() for out, _ in outs])
+                    per_replica = [out.total_frames.cpu().numpy() for out, _ in outs]
+                    totals = np.concatenate(per_replica)
+                if tracing.enabled():  # K1 ran each replica to its longest row, within the bucket
+                    tracing.count("batch.k1_steps",
+                                  sum(min(int(t.max()), max_frames) for t in per_replica))
                 need = int(totals.max())
                 if need <= max_frames or max_frames >= max(buckets):
                     break
@@ -458,7 +462,8 @@ class _StreamRun:
                                             pipe.decode_weights)
         self.carry = init_packed_carry(pipe.decode_weights, 1, max_frames)
         self.total_frames = va.total_frames
-        self.total_dev = va.total_frames.clamp(max=max_frames)  # masks window tails
+        # masks window tails; K1 stops the row there
+        self.total_dev = va.total_frames.clamp(max=max_frames).to(torch.int32)
         self.chunks: List[torch.Tensor] = []  # [1, steps, n_mels] each, the pipeline's dtype
         self.pos = 0  # frames decoded
 
@@ -469,7 +474,7 @@ class _StreamRun:
             steps = min(self.chunk, self.max_frames - self.pos)
             with tracing.device_span("stream.decode", self.pipe.device):
                 self.carry, mel = ar_decode_chunk(self.pipe.decode_weights, self.memory,
-                                                  self.carry, self.pos, steps)
+                                                  self.carry, self.pos, steps, self.total_dev)
                 # the one-shot decode's cast; the carry keeps the f32 frame, which
                 # the next chunk's prenet rounds as the one-shot feedback does
                 self.chunks.append(mel.to(self.pipe.dtype))

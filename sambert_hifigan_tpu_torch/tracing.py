@@ -53,7 +53,9 @@ The names recorded (DynamicBatcher, TTSPipeline.stream, synthesize_batch):
 Counters: batcher.rounds, batcher.admitted (new streams), stream.k1_steps,
 stream.frames_returned, stream.overflow_restarts, batch.overflow_reruns,
 batch.rows_padded (batch-bucket and replica padding), batch.frames_decoded
-(rows x frame bucket per pass), batch.frames_returned.
+(rows x frame bucket per pass), batch.k1_steps (the steps K1 ran per pass:
+each replica's longest row within the bucket, summed over replicas),
+batch.frames_returned.
 """
 
 from __future__ import annotations

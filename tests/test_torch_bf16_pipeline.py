@@ -173,8 +173,10 @@ def test_bf16_stream_matches_bf16_synthesize(bf16):
 
 
 def test_bf16_chained_chunks_equal_one_shot(bf16):
-    """The stream's decode, chunk by chunk from the carry, gives the bits of
-    the one-shot bf16 decode, and its bf16 chunks those of text_to_mel."""
+    """The stream's decode, chunk by chunk from the carry with the text's
+    total as its length, gives the bits of the one-shot bf16 decode with
+    that length (below it those of the decode without lengths, past it 0),
+    and its bf16 chunks those of text_to_mel."""
     _, pp, _ = bf16
     text = TEXTS[1]
     _, args = pp._frontend_args([text])
@@ -185,10 +187,13 @@ def test_bf16_chained_chunks_equal_one_shot(bf16):
     va = pp._encode(args, SECOND, 1.0, 0.0, 1.0)
     assert va.hvar.dtype == BF16
     memory = decode_memory(pp.acoustic.ar_decoder, va.hvar, ~va.frame_mask, pp.decode_weights)
-    one_shot = k1.ar_decode(pp.decode_weights, *memory, SECOND)
+    one_shot = k1.ar_decode(pp.decode_weights, *memory, SECOND, run.total_dev)
     assert torch.equal(chained, one_shot.to(BF16))
     mel = pp.text_to_mel([text], max_frames=SECOND)
     total = int(mel.total_frames[0])
+    assert 0 < total < SECOND and not chained[:, total:].any()
+    full = k1.ar_decode(pp.decode_weights, *memory, SECOND)
+    assert torch.equal(chained[:, :total], full[:, :total].to(BF16))
     assert torch.equal(chained[:, :total], mel.mel_pred[:, :total])
 
 

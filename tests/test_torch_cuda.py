@@ -167,6 +167,106 @@ def test_k1_refuses_chunks_outside_the_carry(cuda_device):
     assert k1.launches == before
 
 
+def _ragged(b, t, dev):
+    """Row lengths with a row of length 0, one of the full T (the last) and
+    the rest spread below T / 2, int32 on dev: at B = 20 the first cluster's
+    longest row (10 rows) ends below T / 2, the second's at T."""
+    n = [(37 * r) % (t // 2) for r in range(b)]
+    n[-1] = t if b > 1 else t // 3
+    return torch.tensor(n, dtype=torch.int32, device=dev)
+
+
+def _kept_frames_are_the_full_decodes(got, full, carry, full_carry, lengths):
+    """Frames and cache rows below each row's length are the bits of the
+    decode without lengths; frames at or past it are 0, cache rows there
+    never written (the fresh carry's zeros)."""
+    for r, n in enumerate(lengths.tolist()):
+        assert torch.equal(got[r, :n], full[r, :n])
+        assert not got[r, n:].any()
+        for cache, want in ((carry.k_cache, full_carry.k_cache),
+                            (carry.v_cache, full_carry.v_cache)):
+            assert torch.equal(cache[:, r, :n], want[:, r, :n])
+            assert not cache[:, r, n:].any()
+    assert torch.equal(carry.prev_mel, got[:, -1])
+
+
+@pytest.mark.parametrize("b,n_layers", [(1, 2), (4, 2), (16, 6), (20, 2)],
+                         ids=["B1", "B4", "B16-6-layers", "B20-two-clusters"])
+def test_k1_lengths_keep_the_kept_frames_bits(cuda_device, b, n_layers):
+    """K1 with ragged lengths against K1 without, at full width (B = 16 the
+    default decoder's constant-shape instantiation, B = 20 two clusters of
+    10 rows that stop at different steps): one launch each, kept frames and
+    cache rows equal bit for bit, the rest 0; lengths of T give the decode
+    without lengths.  Then against the plain version with the same lengths,
+    at the no-lengths test's tolerance (mean 1e-2, max 0.1) over the kept
+    frames, the written cache rows and the carried frame: both leave exact
+    zeros past each row's length."""
+    t = 300
+    w, mk, mv, bias = _full_width_inputs(cuda_device, b, t, n_layers)
+    lengths = _ragged(b, t, cuda_device)
+    full_carry = k1.init_carry(w, b, t)
+    before = k1.launches
+    full_carry, full = k1.ar_decode_chunk(w, mk, mv, bias, full_carry, 0, t)
+    carry, got = k1.ar_decode_chunk(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t, lengths)
+    whole = k1.ar_decode(w, mk, mv, bias, t, torch.full_like(lengths, t))
+    torch.cuda.synchronize()
+    assert k1.launches == before + 3
+    assert torch.isfinite(full).all() and full.abs().sum() > 0
+    _kept_frames_are_the_full_decodes(got, full, carry, full_carry, lengths)
+    assert torch.equal(whole, full)
+
+    plain_carry, plain = k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t,
+                                            lengths)
+    kept = torch.arange(t, device=cuda_device)[None, :] < lengths[:, None]  # [B, T]
+    for name, a, ref, mask in (
+            ("mel", got, plain, kept[:, :, None]),
+            ("prev_mel", carry.prev_mel, plain_carry.prev_mel, lengths[:, None] == t),
+            ("k_cache", carry.k_cache.float(), plain_carry.k_cache.float(), kept[None, :, :, None]),
+            ("v_cache", carry.v_cache.float(), plain_carry.v_cache.float(), kept[None, :, :, None])):
+        mask = mask.expand_as(a)
+        assert not ref[~mask].any() and not a[~mask].any(), name
+        err = (a - ref).abs()[mask]
+        if err.numel():  # B = 1 keeps no row to T, so its carried frame is 0
+            assert err.mean() < 1e-2 and err.max() < 0.1, (name, err.mean().item(),
+                                                           err.max().item())
+
+
+@pytest.mark.parametrize("chunk", [30, 48], ids=["divides-T", "does-not-divide-T"])
+@pytest.mark.parametrize("b", [4, 20])
+def test_k1_chunk_chain_with_lengths_equals_one_shot(cuda_device, b, chunk):
+    """Chunks from the carry with ragged lengths give the one launch's bits
+    (mel and caches), whose kept frames are the decode's without lengths:
+    a chunk wholly past a cluster's rows still launches and writes zeros."""
+    t = 300
+    w, mk, mv, bias = _full_width_inputs(cuda_device, b, t, 2)
+    lengths = _ragged(b, t, cuda_device)
+    full_carry, full = k1.ar_decode_chunk(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t)
+    one_carry, one = k1.ar_decode_chunk(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t, lengths)
+    carry = k1.init_carry(w, b, t)
+    before = k1.launches
+    mels = []
+    for pos in range(0, t, chunk):
+        carry, mel = k1.ar_decode_chunk(w, mk, mv, bias, carry, pos, min(chunk, t - pos), lengths)
+        mels.append(mel)
+    torch.cuda.synchronize()
+    assert k1.launches == before + len(mels)
+    assert torch.equal(torch.cat(mels, dim=1), one)
+    for a, want in zip(carry, one_carry):
+        assert torch.equal(a, want)
+    _kept_frames_are_the_full_decodes(one, full, one_carry, full_carry, lengths)
+
+
+def test_k1_refuses_lengths_it_does_not_take(cuda_device):
+    w, mk, mv, bias = _full_width_inputs(cuda_device, 2, 40, 2)
+    before = k1.launches
+    for lengths in (torch.tensor([3, 4], dtype=torch.int64, device=cuda_device),
+                    torch.tensor([3, 4], dtype=torch.int32),
+                    torch.tensor([3, 4, 5], dtype=torch.int32, device=cuda_device)):
+        with pytest.raises(ValueError, match="lengths"):
+            k1.ar_decode(w, mk, mv, bias, 40, lengths)
+    assert k1.launches == before
+
+
 @pytest.mark.parametrize("t", [40, 1000, 4099])
 @pytest.mark.parametrize("c", [32, 64, 128, 256])
 def test_k2_kernel_matches_plain_on_card(cuda_device, c, t):
@@ -481,6 +581,28 @@ def _replica_rows_match_direct_calls(devices):
             np.testing.assert_array_equal(got, want)
     assert [len(w) for w in wavs] == [len(w) for w in single.synthesize_batch(SERVE_TEXTS)]
     return split
+
+
+def test_synthesize_batch_is_the_same_without_lengths(cuda_device, monkeypatch):
+    """The one-shot path hands K1 each row's total and K1 stops each row
+    there: the wavs are the bits of the whole-bucket decode's (K1 told no
+    lengths), one K1 launch a call either way."""
+    from sambert_hifigan_tpu_torch.models import acoustic_model
+
+    pipe = _serving_pipe(["cuda:0"])
+    totals = pipe.text_to_mel(SERVE_TEXTS).total_frames.tolist()
+    assert len(set(totals)) > 1  # ragged rows
+    before = k1.launches
+    with_lengths = pipe.synthesize_batch(SERVE_TEXTS)
+    decode = acoustic_model.ar_decode
+    monkeypatch.setattr(acoustic_model, "ar_decode",
+                        lambda *a, lengths=None, **k: decode(*a, **k))
+    without = pipe.synthesize_batch(SERVE_TEXTS)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 2
+    for got, want in zip(with_lengths, without):
+        assert got.size > 0 and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
 
 
 def test_two_replicas_on_one_card_match_direct_calls(cuda_device):

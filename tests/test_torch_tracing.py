@@ -388,6 +388,25 @@ def test_real_synthesize_batch_counts_padding_frames_and_the_rerun(tiny_pipe):
     assert snap["spans"]["batch.call"]["n"] == 1
 
 
+@pytest.mark.parametrize("replicas,steps", [(1, [96, 113]), (2, [96 + 93, 113 + 93])],
+                         ids=["one-replica", "two-replicas"])
+def test_batch_k1_steps_count_each_replicas_longest_row_within_the_bucket(tiny_pipe, replicas,
+                                                                           steps):
+    """Per pass, each replica's K1 runs to min(its longest total, bucket):
+    the first pass at 96 (今天天气's 113 past it), the overflow re-run at
+    160.  Two replicas take rows [你好, 今天天气] and [abc, abc] (93)."""
+    pipe = tiny_pipe
+    if replicas > 1:
+        pipe = TTSPipeline(tiny_pipe.cfg, tiny_pipe.acoustic.state_dict(),
+                           tiny_pipe.generator.state_dict(), devices=["cpu"] * replicas)
+    tracing.enable(True)
+    pipe.synthesize_batch(["你好", "今天天气", "abc"])
+    counters = tracing.snapshot()["counters"]
+    assert counters["batch.overflow_reruns"] == 1
+    assert counters["batch.k1_steps"] == sum(steps)
+    assert counters["batch.frames_decoded"] == 4 * 96 + 4 * 160
+
+
 # ---- the clock and profiling.py ---------------------------------------------------
 
 
