@@ -32,35 +32,36 @@ sys.path[:0] = [BENCH_DIR, ROOT]
 def control(cell, seed: int, seconds: float, device: str = "cuda") -> dict:
     import torch
 
-    from harness import common, port, traffic
+    from harness import traffic
     from harness.drivers import batch, live
     from harness.record import Run
-    from reference import acoustic as ref
+    from harness.spec import model_of
     from reference.precision import ieee_f32, rounder
 
-    c, tr = cell.config, cell.traffic
+    c, tr, model = cell.config, cell.traffic, model_of(cell)
     dev = torch.device(device)
     out = Run(c, tr, cell.chips)
-    sd_ac, sd_gen = common.make_weights(c, port.tts_config(c), seed, dev)
+    W = model.weights(c, model.config(c), seed, dev)
     if tr["kind"] == "batch":
         calls = [t for cyc in traffic.batch_cycles(tr, seed, 3, cell.laws_dir) for t in cyc]
         picks = batch.sample([(0, 0, t, None) for t in calls], tr["check_calls"], seed)
         with ieee_f32():
-            results = [(0, 0, calls[i], ref.synthesize_batch(sd_ac, sd_gen, c, calls[i],
-                                                             rounder("fp8"), dev))
+            results = [(0, 0, calls[i], model.reference_batch(W, c, calls[i], rounder("fp8"),
+                                                              dev))
                        for i in picks]
-        batch.check(out, results, sd_ac, sd_gen, c, dict(tr, check_calls=len(results)),
+        batch.check(out, results, model, W, c, dict(tr, check_calls=len(results)),
                     seed, dev, "f32")
         return out.checks
     arrivals = traffic.arrivals(tr, seed, seconds, cell.laws_dir)
     chosen = live.picks(arrivals, list(range(len(arrivals))), tr["check_streams"], seed)
     with ieee_f32():
-        chunks = ref.stream_chunks(sd_ac, sd_gen, c, [arrivals[i][1] for i in chosen],
-                                   tr["chunk_frames"], tr["context_frames"], rounder("fp8"), dev)
+        chunks = model.reference_stream(W, c, [arrivals[i][1] for i in chosen],
+                                        tr["chunk_frames"], tr["context_frames"], rounder("fp8"),
+                                        dev)
     results = [(0.0, [])] * len(arrivals)
     for i, ch in zip(chosen, chunks):
         results[i] = (0.0, ch)
-    live.check(out, arrivals, results, sd_ac, sd_gen, c, tr, seed, dev, "f32")
+    live.check(out, arrivals, results, model, W, c, tr, seed, dev, "f32")
     return out.checks
 
 

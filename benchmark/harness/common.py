@@ -1,20 +1,11 @@
-"""What every driver sets up alike: the cards a run uses, the weights of
-the TTS configurations, and the device's synchronisation and peak memory."""
+"""What every driver sets up alike: the cards a run uses, the precision,
+and the device's synchronisation and peak memory."""
 
 from __future__ import annotations
 
 import torch
 
-from . import port, weights
 from .record import Context
-
-
-def make_weights(c: dict, cfg, seed: int, device):
-    ac_shapes, gen_shapes = port.tts_shapes(cfg)
-    sd_ac = weights.make(ac_shapes, seed, device)
-    weights.pin_predictors(sd_ac, c)
-    sd_gen = weights.make(gen_shapes, seed + 1, device)
-    return sd_ac, sd_gen
 
 
 def devices_for(ctx: Context, chips: int):

@@ -5,40 +5,25 @@ Run`; a new kind of mix is a new file there."""
 
 from __future__ import annotations
 
-import importlib
-import importlib.util
-import re
 import sys
 from pathlib import Path
 from typing import Callable, Optional
 
 from .record import Context, Run, log
-from .spec import Cell
+from .spec import BENCH_DIR, Cell, load_module, stems
 
-DRIVER_DIR = Path(__file__).resolve().parent / "drivers"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sambert_hifigan_tpu")
 
 
-def kinds(bench_dir: Path = DRIVER_DIR.parent.parent) -> list:
+def kinds(bench_dir: Path = BENCH_DIR) -> list:
     """The kinds of mix there are drivers for in a benchmark directory."""
-    return sorted(p.stem for p in (Path(bench_dir) / "harness" / "drivers").glob("*.py")
-                  if p.stem != "__init__")
+    return stems(Path(bench_dir) / "harness" / "drivers")
 
 
-def driver(kind: str, bench_dir: Path = DRIVER_DIR.parent.parent) -> Callable:
-    """The `run` of the driver of a traffic kind, found by file name (a
-    driver added to another checkout's benchmark runs against this
-    harness)."""
-    if not re.fullmatch(r"[A-Za-z0-9_]+", kind) or kind not in kinds(bench_dir):
-        raise ValueError(f"traffic kind {kind!r} is not one of {kinds(bench_dir)}")
-    path = (Path(bench_dir) / "harness" / "drivers" / f"{kind}.py").resolve()
-    name = f"{__package__}.drivers.{kind}"
-    if path == DRIVER_DIR / f"{kind}.py":
-        return importlib.import_module(name).run
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.run
+def driver(kind: str, bench_dir: Path = BENCH_DIR) -> Callable:
+    """The `run` of the driver of a traffic kind, found by file name."""
+    return load_module(Path(bench_dir) / "harness" / "drivers", kind, "traffic kind",
+                       f"{__package__}.drivers.{kind}").run
 
 
 def forbidden_modules() -> list:

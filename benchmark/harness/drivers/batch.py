@@ -10,13 +10,14 @@ import time
 import numpy as np
 import torch
 
-from reference import acoustic as ref
 from reference import frontend
+from reference.acoustic import wav_gaps
 from reference.precision import ieee_f32, rounder
 
 from .. import port, traffic
-from ..common import devices_for, dtype_of, make_weights, peak_bytes, sync
+from ..common import devices_for, dtype_of, peak_bytes, sync
 from ..record import Context, Run, log
+from ..spec import model_of
 from ..trace import capture
 
 MAX_CYCLES = 32  # a 50-s window runs 8 on an H100
@@ -37,12 +38,13 @@ def _fault(ctx: Context, wavs):
 def run(cell, seed: int, seconds: float, trace: bool, ctx: Context) -> Run:
     c, tr = cell.config, cell.traffic
     out = Run(c, tr, cell.chips)
-    cfg = port.tts_config(c)
+    model = model_of(cell)
+    cfg = model.config(c)
     devs = devices_for(ctx, cell.chips)
     if devs[0].type == "cuda":
         port.build_kernels()
-    sd_ac, sd_gen = make_weights(c, cfg, seed, devs[0])
-    pipe = port.pipeline(cfg, sd_ac, sd_gen, devs, dtype_of(c))
+    W = model.weights(c, cfg, seed, devs[0])
+    pipe = model.pipeline(cfg, W, devs, dtype_of(c))
     cycles = traffic.batch_cycles(tr, seed, MAX_CYCLES, cell.laws_dir)
     hop, sr = c["hop_length"], c["sample_rate"]
 
@@ -110,7 +112,7 @@ def run(cell, seed: int, seconds: float, trace: bool, ctx: Context) -> Run:
     if devs[0].type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    check(out, results, sd_ac, sd_gen, c, tr, seed, devs[0], "f32")
+    check(out, results, model, W, c, tr, seed, devs[0], "f32")
     log(f"set-up {ctx.setup_s:.3f} s, the comparison {time.perf_counter() - t_check:.3f} s")
     return out
 
@@ -124,20 +126,20 @@ def sample(results, n: int, seed: int):
     return [longest] + [int(i) for i in rng.choice(rest, min(n - 1, len(rest)), replace=False)]
 
 
-def check(out: Run, results, sd_ac, sd_gen, c, tr, seed, device, precision: str) -> None:
-    """Compare the sampled calls' rows with the reference in `precision`:
-    every row's length exactly, and the widest gap of any sample.  The
-    worst row's relative error with each wav's mean taken out (random
-    weights give a wav that is mostly a constant offset) is printed, not
-    compared: the fp8 control reads under three times sound runs on it
-    (PERF.md)."""
+def check(out: Run, results, model, W, c, tr, seed, device, precision: str) -> None:
+    """Compare the sampled calls' rows with the model's reference over the
+    weights `W` in `precision`: every row's length exactly, and the widest
+    gap of any sample.  The worst row's relative error with each wav's
+    mean taken out (random weights give a wav that is mostly a constant
+    offset) is printed, not compared: the fp8 control reads under three
+    times sound runs on it (PERF.md)."""
     q = rounder(precision)
     mismatched, widest, worst = (0, 0.0, 0.0) if results else (1, 0.0, 0.0)
     with ieee_f32():
         for i in sample(results, tr["check_calls"], seed) if results else []:
             texts, wavs = results[i][2], results[i][3]
-            want = ref.synthesize_batch(sd_ac, sd_gen, c, texts, q, device)
-            m, w, r = ref.wav_gaps(wavs, want)
+            want = model.reference_batch(W, c, texts, q, device)
+            m, w, r = wav_gaps(wavs, want)
             mismatched, widest, worst = mismatched + m, max(widest, w), max(worst, r)
     out.checks["length_mismatch"] = float(mismatched)
     out.checks["wav_max_abs_err"] = widest

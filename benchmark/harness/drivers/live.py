@@ -14,13 +14,14 @@ import time
 import numpy as np
 import torch
 
-from reference import acoustic as ref
 from reference import frontend
+from reference.acoustic import wav_gaps
 from reference.precision import ieee_f32, rounder
 
 from .. import port, traffic
-from ..common import devices_for, dtype_of, make_weights, peak_bytes, sync
+from ..common import devices_for, dtype_of, peak_bytes, sync
 from ..record import Context, Run, log
+from ..spec import model_of
 from ..trace import capture
 
 DRAIN_S = 60.0  # how long past the last arrival a stream may still finish
@@ -76,12 +77,13 @@ def p95(values) -> float:
 def run(cell, seed: int, seconds: float, trace: bool, ctx: Context) -> Run:
     c, tr = cell.config, cell.traffic
     out = Run(c, tr, cell.chips)
-    cfg = port.tts_config(c)
+    model = model_of(cell)
+    cfg = model.config(c)
     devs = devices_for(ctx, 1)
     if devs[0].type == "cuda":
         port.build_kernels()
-    sd_ac, sd_gen = make_weights(c, cfg, seed, devs[0])
-    pipe = port.pipeline(cfg, sd_ac, sd_gen, devs, dtype_of(c))
+    W = model.weights(c, cfg, seed, devs[0])
+    pipe = model.pipeline(cfg, W, devs, dtype_of(c))
     batcher = port.batcher(pipe, tr["max_batch"], tr["max_wait_ms"])
     arrivals = traffic.arrivals(tr, seed, seconds, cell.laws_dir)
     warm = {}
@@ -127,7 +129,7 @@ def run(cell, seed: int, seconds: float, trace: bool, ctx: Context) -> Run:
     if devs[0].type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    check(out, arrivals, results, sd_ac, sd_gen, c, tr, seed, devs[0], "f32")
+    check(out, arrivals, results, model, W, c, tr, seed, devs[0], "f32")
     log(f"set-up {ctx.setup_s:.3f} s, the comparison {time.perf_counter() - t_check:.3f} s")
     return out
 
@@ -141,25 +143,26 @@ def picks(arrivals, done, n: int, seed: int):
     return [longest] + [int(i) for i in rng.choice(rest, min(n - 1, len(rest)), replace=False)]
 
 
-def check(out: Run, arrivals, results, sd_ac, sd_gen, c, tr, seed, device, precision) -> None:
+def check(out: Run, arrivals, results, model, W, c, tr, seed, device, precision) -> None:
     """Compare a sample of the finished streams chunk by chunk with the
-    reference's stream in `precision`: every chunk's length exactly, and
-    the widest gap of any sample, each stream's chunks joined (as the
-    one-shot cells do; the content's relative error is printed)."""
+    model's reference stream over the weights `W` in `precision`: every
+    chunk's length exactly, and the widest gap of any sample, each stream's
+    chunks joined (as the one-shot cells do; the content's relative error
+    is printed)."""
     done = [i for i, (t, _) in enumerate(results) if t is not None]
     mismatched, widest, worst = (0, 0.0, 0.0) if done else (1, 0.0, 0.0)
     if done:
         chosen = picks(arrivals, done, tr["check_streams"], seed)
         with ieee_f32():
-            want = ref.stream_chunks(sd_ac, sd_gen, c, [arrivals[i][1] for i in chosen],
-                                     tr["chunk_frames"], tr["context_frames"],
-                                     rounder(precision), device)
+            want = model.reference_stream(W, c, [arrivals[i][1] for i in chosen],
+                                          tr["chunk_frames"], tr["context_frames"],
+                                          rounder(precision), device)
         for i, w in zip(chosen, want):
             got = results[i][1]
             if [len(x) for x in got] != [len(x) for x in w]:
                 mismatched += 1
                 continue
-            m, g, r = ref.wav_gaps([np.concatenate(got)], [np.concatenate(w)])
+            m, g, r = wav_gaps([np.concatenate(got)], [np.concatenate(w)])
             mismatched, widest, worst = mismatched + m, max(widest, g), max(worst, r)
     out.checks["length_mismatch"] = float(mismatched)
     out.checks["wav_max_abs_err"] = widest

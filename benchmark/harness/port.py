@@ -1,7 +1,8 @@
-"""The system under test, `sambert_hifigan_tpu_torch`, built from a
-benchmark configuration: its config tree, the state_dict layouts the
-weights are made in, and its entry points.  The only module of the harness
-that imports the program."""
+"""The system under test, `sambert_hifigan_tpu_torch`, where it is not one
+model's: its config tree, the kernels' build, the batcher, the launch
+counters and the vocoder trainer.  A model's own glue (its weights'
+layouts, its pipeline) is in `harness/models/<model>.py`; only this module
+and those import the program."""
 
 from __future__ import annotations
 
@@ -60,32 +61,16 @@ def tts_config(c: dict):
                                runtime=runtime, training=training, loss_weights=weights)
 
 
-def _shapes(module):
+def state_shapes(module):
+    """A module's state_dict layout as [(name, shape)]."""
     return [(k, tuple(v.shape)) for k, v in module.state_dict().items()]
-
-
-def tts_shapes(cfg):
-    """(acoustic, generator) state_dict layouts as [(name, shape)]."""
-    from sambert_hifigan_tpu_torch.models.acoustic_model import SAMBERTAcousticModel
-    from sambert_hifigan_tpu_torch.models.hifigan import HiFiGANGenerator
-
-    with torch.device("meta"):
-        return (_shapes(SAMBERTAcousticModel(cfg.acoustic_model)),
-                _shapes(HiFiGANGenerator(cfg.vocoder.generator)))
 
 
 def gan_shapes(cfg):
     from sambert_hifigan_tpu_torch.models.hifigan import HiFiGAN
 
     with torch.device("meta"):
-        return _shapes(HiFiGAN(cfg.vocoder))
-
-
-def pipeline(cfg, acoustic_sd, generator_sd, devices, dtype):
-    from sambert_hifigan_tpu_torch.pipeline import TTSPipeline
-
-    return TTSPipeline(cfg, acoustic_sd, generator_sd, device=devices[0],
-                       devices=devices if len(devices) > 1 else None, dtype=dtype)
+        return state_shapes(HiFiGAN(cfg.vocoder))
 
 
 def build_kernels() -> None:

@@ -27,12 +27,12 @@ Kinds of mix (the traffic file's "kind", which names the driver):
 
 from __future__ import annotations
 
-import importlib.util
-import re
 from pathlib import Path
 from typing import List
 
 import numpy as np
+
+from .spec import load_module
 
 CJK_FIRST, CJK_LAST = 0x4E00, 0x9FA5  # the common CJK ideographs
 LAWS_DIR = Path(__file__).resolve().parent.parent / "traffic" / "laws"
@@ -40,13 +40,7 @@ LAWS_DIR = Path(__file__).resolve().parent.parent / "traffic" / "laws"
 
 def law(name: str, laws_dir: Path = LAWS_DIR):
     """The module of the law `name`, found by file name."""
-    path = Path(laws_dir) / f"{name}.py"
-    if not re.fullmatch(r"[A-Za-z0-9_]+", name) or not path.is_file():
-        raise ValueError(f"no traffic law {name!r} under {laws_dir}")
-    spec = importlib.util.spec_from_file_location(f"benchmark_law_{name}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return load_module(laws_dir, name, "traffic law", f"benchmark_law_{name}")
 
 
 def draw(group: dict, n: int, laws_dir: Path = LAWS_DIR) -> List[float]:

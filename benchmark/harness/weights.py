@@ -11,13 +11,15 @@ Families (those of torch's modules, as a trained model starts):
                                     conv's fan_in is Cout * K
   weight-normed convs               v as above, g = ||v|| per output channel
 The variance predictors' output layers are pinned (`pin_predictors`).
+A model with tensors of other families passes `make` its own `family`,
+which answers for those and hands every other name to `_family`.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -52,11 +54,14 @@ def _fan_in(name: str, shapes: Dict[str, Tuple[int, ...]]) -> int:
     return math.prod(w[1:])
 
 
-def make(shapes: Shapes, seed: int, device) -> Dict[str, torch.Tensor]:
-    """{name: float32 tensor} for every (name, shape), from `seed`."""
+def make(shapes: Shapes, seed: int, device,
+         family: Callable[[str, Tuple[int, ...]], Tuple[str, float]] = _family
+         ) -> Dict[str, torch.Tensor]:
+    """{name: float32 tensor} for every (name, shape), from `seed`; each
+    tensor's (kind, scale) from `family`, as `_family` gives them."""
     by_name = dict(shapes)
     gen = torch.Generator(device=device).manual_seed(seed)
-    fams = {n: _family(n, s) for n, s in shapes}
+    fams = {n: family(n, s) for n, s in shapes}
     n_uni = sum(math.prod(s) for n, s in shapes if fams[n][0] == "uniform")
     n_norm = sum(math.prod(s) for n, s in shapes if fams[n][0] == "normal")
     uni = torch.rand(n_uni, generator=gen, device=device).mul_(2.0).sub_(1.0)

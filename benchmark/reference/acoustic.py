@@ -10,7 +10,8 @@ quantised into bins whose embeddings are added to the length-regulated
 encoding) -> the autoregressive decoder (prenet, sinusoidal positions, 6
 post-norm layers of causal self-attention over the frames so far,
 cross-attention over the regulated encoding, FFN; a mel projection fed back
-as the next input, from a zero frame) -> the HiFi-GAN generator.
+as the next input, from a zero frame) -> the vocoder a model's reference
+passes as `vocode` (the HiFi-GAN generator's is `hifigan`).
 
 The batch and stream entry points apply the system's documented bucket
 rules (frontend.py), since padding is part of what a call computes: the
@@ -21,7 +22,7 @@ end, and the frame bucket where the vocoder's convolutions zero-pad.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ from . import frontend
 from .generator import generator
 
 NEG_INF = -1e9
+Vocode = Callable[[torch.Tensor], torch.Tensor]
 
 
 def lin(P, name, x, q):
@@ -171,21 +173,28 @@ def acoustic(P, c, texts: Sequence[str], q, device):
     return mel * fmask[:, :, None], totals.clamp(max=frames), frames
 
 
+def hifigan(P_gen, c, q) -> Vocode:
+    """The HiFi-GAN generator of `P_gen` as a `vocode`."""
+    return lambda mel: generator(P_gen, "", mel, c, q)
+
+
 @torch.no_grad()
-def synthesize_batch(P_ac, P_gen, c, texts, q, device) -> List[np.ndarray]:
-    """One-shot call: each text's wav, trimmed to its frames."""
+def synthesize_batch(P_ac, vocode: Vocode, c, texts, q, device) -> List[np.ndarray]:
+    """One-shot call: each text's wav, trimmed to its frames; `vocode` maps
+    mel [B, n_mels, T] to wav [B, 1, T * hop]."""
     mel, totals, _ = acoustic(P_ac, c, texts, q, device)
-    wav = generator(P_gen, "", mel.transpose(1, 2), c, q)[:, 0]
+    wav = vocode(mel.transpose(1, 2))[:, 0]
     hop = c["hop_length"]
     return [wav[i, :int(totals[i]) * hop].cpu().numpy() for i in range(len(texts))]
 
 
 @torch.no_grad()
-def stream_chunks(P_ac, P_gen, c, texts, chunk: int, context: int, q,
+def stream_chunks(P_ac, vocode: Vocode, c, texts, chunk: int, context: int, q,
                   device) -> List[List[np.ndarray]]:
     """Each text's stream as its chunks: the text alone at its own bucket,
     every chunk of `chunk` frames vocoded from a window of `context` frames
-    each side that stops at the bucket's end, frames past the total zero."""
+    each side that stops at the bucket's end, frames past the total zero.
+    `vocode` as `synthesize_batch` takes it."""
     hop = c["hop_length"]
     out = []
     for text in texts:
@@ -195,7 +204,7 @@ def stream_chunks(P_ac, P_gen, c, texts, chunk: int, context: int, q,
         for start in range(0, total, chunk):
             lo = max(0, start - context)
             n = min(chunk + 2 * context, frames - lo)
-            wav = generator(P_gen, "", mel[:, lo:lo + n].transpose(1, 2), c, q)[0, 0]
+            wav = vocode(mel[:, lo:lo + n].transpose(1, 2))[0, 0]
             s = (start - lo) * hop
             chunks.append(wav[s:s + min(chunk, total - start) * hop].cpu().numpy())
         out.append(chunks)

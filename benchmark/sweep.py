@@ -32,19 +32,19 @@ def main() -> int:
     import torch
 
     from harness import port, traffic
-    from harness.common import dtype_of, make_weights
+    from harness.common import dtype_of
     from harness.drivers.live import _open_loop, p95
     from harness.record import Context
-    from harness.spec import load_cell
+    from harness.spec import load_cell, model_of
     from reference import frontend
 
     cell = load_cell(args.workload)
-    c, tr = cell.config, cell.traffic
-    cfg = port.tts_config(c)
+    c, tr, model = cell.config, cell.traffic, model_of(cell)
+    cfg = model.config(c)
     dev = torch.device("cuda")
     port.build_kernels()
-    sd_ac, sd_gen = make_weights(c, cfg, args.seed, dev)
-    pipe = port.pipeline(cfg, sd_ac, sd_gen, [dev], dtype_of(c))
+    W = model.weights(c, cfg, args.seed, dev)
+    pipe = model.pipeline(cfg, W, [dev], dtype_of(c))
     batcher = port.batcher(pipe, tr["max_batch"], tr["max_wait_ms"])
     warm = {}
     for _, text in traffic.arrivals(tr, args.seed, args.seconds, cell.laws_dir):

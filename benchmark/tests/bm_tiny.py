@@ -1,5 +1,6 @@
 """Each cell cut to a size the CPU runs in seconds: the program in f32,
-where its kernels' plain versions compute the f32 reference's arithmetic."""
+where its kernels' plain versions compute the f32 reference's arithmetic.
+A one-shot or live cell takes its model's `TINY` sizes."""
 
 from __future__ import annotations
 
@@ -10,12 +11,6 @@ import os
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
 
-TINY_TTS = dict(d_model=32, encoder_layers=1, encoder_heads=2, encoder_ffn=64,
-                decoder_layers=1, decoder_heads=2, decoder_ffn=64, n_mels=16,
-                upsample_rates=[2, 2], upsample_kernel_sizes=[4, 4],
-                upsample_initial_channel=16, resblock_kernel_sizes=[3],
-                resblock_dilation_sizes=[[1, 3]], hop_length=4, dtype="float32",
-                frames_per_phoneme=2, phoneme_buckets=[8, 16, 32], frame_buckets=[32, 64, 128])
 TINY_GAN = dict(upsample_initial_channel=16, channel_div=64, dtype="float32")
 TINY_TRAFFIC = {
     "batch": dict(batch=4, cycle=2, check_calls=2,
@@ -30,9 +25,11 @@ TINY_TRAFFIC = {
 
 def tiny(cell):
     """The cell at the CPU tests' size."""
+    from harness.spec import model_of
+
     kind = cell.traffic["kind"]
     kind = kind if kind in TINY_TRAFFIC else "batch"  # a kind the tests add, of one-shot calls
-    over = TINY_GAN if kind == "train" else TINY_TTS
+    over = TINY_GAN if kind == "train" else model_of(cell).TINY
     return dataclasses.replace(cell, config={**cell.config, **over},
                                traffic={**cell.traffic, **TINY_TRAFFIC[kind]})
 

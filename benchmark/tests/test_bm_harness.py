@@ -1,9 +1,11 @@
 """The harness on the CPU: every cell resolves and runs end to end at a
 tiny size, faults planted under the timed path come out as not correct, a
-cell can be added with files and an entry alone, and no run loads JAX."""
+cell, a law, a kind of mix or a model can be added with files and entries
+alone, and no run loads JAX."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -15,6 +17,7 @@ import pytest
 import bm_tiny
 from bm_tiny import BENCH_DIR, ROOT, tiny
 from harness import traffic
+from harness import weights as harness_weights
 from harness.core import FORBIDDEN, forbidden_modules, kinds, run_cell
 from harness.record import Context
 from harness.spec import load_cell, load_json
@@ -142,16 +145,18 @@ def test_refuses_without_the_program(tmp_path):
     assert "sambert_hifigan_tpu_torch" in out.stderr
 
 
-def _copy_with(tmp_path, files: dict, workloads: list, end_to_end=(), per_layer=()):
+def _copy_with(tmp_path, files: dict, workloads: list, end_to_end=(), per_layer=(),
+               configs=()):
     """A copy of the benchmark with `files` added and cells, end-to-end
     metrics ((cell, metric): a new metric, or the name of one the cell
-    reports too) and per-layer metrics appended."""
+    reports too), per-layer metrics and configurations appended."""
     shutil.copytree(BENCH_DIR, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     for rel, text in files.items():
         (tmp_path / "benchmark" / rel).write_text(text)
     bench = json.loads(json.dumps(BENCH))
     bench["workloads"] += workloads
+    bench["configs"] += list(configs)
     for name, metric in end_to_end:
         have = next((m for m in bench["end_to_end"] if m["name"] == metric["name"]), None)
         if have is None:
@@ -240,6 +245,157 @@ def test_new_driver_kind_from_files(tmp_path):
     line, _ = run_cell(tiny(cell), SEED, 0.2, False, Context(device="cpu"))
     assert line["correct"] and set(line["metrics"]) == {"calls_per_s", "setup_s"}
     assert line["metrics"]["calls_per_s"]["value"] > 0
+
+
+SCALED_MODEL = '''"""SAM-BERT and HiFi-GAN with the wav scaled by 2 + a drawn gain, a tensor
+of a family the weights module does not know."""
+
+from reference import scaled as ref
+
+from .. import weights as init
+from . import sambert_hifigan as base
+
+config, TINY = base.config, base.TINY
+
+
+def family(name, shape):
+    return ("uniform", 0.5) if name == "gain.alpha" else init._family(name, shape)
+
+
+def weights(c, cfg, seed, device):
+    gain = init.make([("gain.alpha", (1,))], seed + 2, device, family)
+    return (*base.weights(c, cfg, seed, device), gain)
+
+
+def pipeline(cfg, W, devices, dtype):
+    pipe = base.pipeline(cfg, W[:2], devices, dtype)
+    vocode, gain = pipe._vocode, 2.0 + W[2]["gain.alpha"]
+    pipe._vocode = lambda mel: vocode(mel) * gain
+    return pipe
+
+
+def reference_batch(W, c, texts, q, device):
+    return ref.synthesize_batch(W, c, texts, q, device)
+
+
+def reference_stream(W, c, texts, chunk, context, q, device):
+    return ref.stream_chunks(W, c, texts, chunk, context, q, device)
+'''
+
+SCALED_REFERENCE = '''"""The scaled model's reference: SAM-BERT, then HiFi-GAN times 2 + the gain."""
+
+from . import acoustic
+from .generator import generator
+
+
+def _vocode(W, c, q):
+    gain = 2.0 + W[2]["gain.alpha"]
+    return lambda mel: generator(W[1], "", mel, c, q) * gain
+
+
+def synthesize_batch(W, c, texts, q, device):
+    return acoustic.synthesize_batch(W[0], _vocode(W, c, q), c, texts, q, device)
+
+
+def stream_chunks(W, c, texts, chunk, context, q, device):
+    return acoustic.stream_chunks(W[0], _vocode(W, c, q), c, texts, chunk, context, q, device)
+'''
+
+SCALED_RUNS = '''
+import dataclasses, json, sys, types
+sys.path[:0] = [%r, %r, %r]
+import bm_tiny
+from harness.core import run_cell
+from harness.models import sambert_hifigan
+from harness.record import Context
+from harness.spec import load_cell
+
+out = {}
+for name in ("scaled-batch", "scaled-live"):
+    cell = bm_tiny.tiny(load_cell(name, %r))
+    assert cell.model.__name__ == "harness.models.scaled" and "gain.alpha" not in cell.config
+    for fault in (None, "answer_altered"):
+        line, _ = run_cell(cell, %d, 0.2, False, Context(device="cpu", fault=fault))
+        out[f"{name} {fault}"] = line["correct"]
+    # the program's gain against the reference without it
+    plain = types.SimpleNamespace(**dict(vars(cell.model), reference_batch=lambda W, *a:
+        sambert_hifigan.reference_batch(W[:2], *a), reference_stream=lambda W, *a:
+        sambert_hifigan.reference_stream(W[:2], *a)))
+    line, _ = run_cell(dataclasses.replace(cell, model=plain), %d, 0.2, False,
+                       Context(device="cpu"))
+    out[f"{name} unscaled reference"] = line["correct"]
+print(json.dumps(out))
+'''
+
+
+def _digests(directory):
+    return {os.path.relpath(os.path.join(d, f), directory):
+            hashlib.sha256(open(os.path.join(d, f), "rb").read()).hexdigest()
+            for d, dirs, files in os.walk(directory) if "__pycache__" not in d for f in files}
+
+
+def test_new_model_from_files(tmp_path):
+    """A model the harness did not know (SAM-BERT and HiFi-GAN with the wav
+    scaled by a gain drawn in a family of its own), its reference, its
+    configuration and a one-shot and a live cell, added as files and
+    entries alone: both cells run correct, a planted fault and the
+    reference without the gain do not, no file that was there changes, an
+    unknown model is refused as the cell loads and a one-shot cell whose
+    configuration names none as it runs; the vocoder trainer's
+    configuration, which names none, comes back as a cell by entries
+    alone."""
+    files = {"harness/models/scaled.py": SCALED_MODEL, "reference/scaled.py": SCALED_REFERENCE,
+             "configs/scaled.json": json.dumps(dict(load_cell("tts-batch").config,
+                                                    name="scaled", model="scaled"))}
+    assert not any(os.path.exists(os.path.join(BENCH_DIR, f)) for f in files)
+    _copy_with(tmp_path, files,
+               [dict(name="scaled-batch", config="scaled", traffic="tts-batch", chips=1,
+                     why="one-shot calls of the scaled model"),
+                dict(name="scaled-live", config="scaled", traffic="tts-live", chips=1,
+                     why="live streams of the scaled model")],
+               [("scaled-batch", {"name": "audio_s_per_s"}),
+                ("scaled-live", {"name": "ttfa_p95_ms"})],
+               configs=[dict(name="scaled", source="a test", file="benchmark/configs/scaled.json",
+                             reduced=[], why="a model from files")])
+    with pytest.raises(TypeError):  # the gain's family is not one weights.py knows
+        harness_weights.make([("gain.alpha", (1,))], 1, "cpu")
+    copy = tmp_path / "benchmark"
+    code = SCALED_RUNS % (str(copy / "tests"), str(copy), ROOT, str(tmp_path), SEED, SEED)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "scaled-batch None": True, "scaled-batch answer_altered": False,
+        "scaled-batch unscaled reference": False, "scaled-live None": True,
+        "scaled-live answer_altered": False, "scaled-live unscaled reference": False}
+    had, now = _digests(BENCH_DIR), _digests(copy)
+    assert {f: now.get(f) for f in had} == had
+
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    for name, model in (("typo", "scaled_typo"), ("odd", "../scaled"), ("none", None)):
+        conf = dict(load_cell("tts-batch").config, name=name, model=model)
+        if model is None:
+            del conf["model"]
+        (copy / "configs" / f"{name}.json").write_text(json.dumps(conf))
+        bench["configs"].append(dict(name=name, source="a test", reduced=[], why="refused",
+                                     file=f"benchmark/configs/{name}.json"))
+        bench["workloads"].append(dict(name=f"{name}-batch", config=name, traffic="tts-batch",
+                                       chips=1, why="refused"))
+    bench["configs"].append(dict(name="hifigan-v1-gan", source="a test", reduced=[],
+                                 why="GAN steps", file="benchmark/configs/hifigan-v1-gan.json"))
+    bench["workloads"].append(dict(name="vocoder-train", config="hifigan-v1-gan",
+                                   traffic="vocoder-train", chips=1, why="GAN steps"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    for name in ("typo", "odd"):
+        with pytest.raises(ValueError, match=r"is not one of \['sambert_hifigan', 'scaled'\]"):
+            load_cell(f"{name}-batch", tmp_path)
+    unnamed = load_cell("none-batch", tmp_path)
+    with pytest.raises(KeyError, match="none-batch names no model"):
+        run_cell(unnamed, SEED, 0.2, False, Context(device="cpu"))
+    train, parked = load_cell("vocoder-train", tmp_path), bm_tiny.train_cell()
+    assert train.model is None
+    assert (train.config, train.traffic, train.limits) == (parked.config, parked.traffic,
+                                                            parked.limits)
 
 
 def _has_card() -> bool:

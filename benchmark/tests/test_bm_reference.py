@@ -1,20 +1,23 @@
 """The yardstick: the plain reference stands apart from the program, the
-copied work counts equal the program's own today, and the fp8 control is
-judged not correct."""
+copied work counts equal the program's own today, the fp8 control is
+judged not correct, and the sambert_hifigan model's weights and reference
+give the bits they gave before the model became a file."""
 
 from __future__ import annotations
 
 import ast
+import hashlib
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import bm_tiny
 from bm_tiny import BENCH_DIR, ROOT, tiny
-from harness import port
+from harness import port, traffic
 from harness.spec import load_cell
 from work import flops as bm
 
@@ -96,3 +99,55 @@ def test_fp8_control_is_not_correct(name):
     cell = tiny(bm_tiny.cell(name))
     checks = calibrate.readings(cell, "control", 2 ** 31 + 99, 0.3, device="cpu")["checks"]
     assert any(v > cell.limits[k] for k, v in checks.items()), checks
+
+
+GOLDEN = {  # sha256, see test_sambert_hifigan_bits_unchanged
+    "weights": "aeb66af4ea95a91f9c5ff830536df40bf2c1025afe4c09695b61cbde8eed333c",
+    "batch": "5bf0cc990c2d3c8f3b62ee4d6af8036bb71506b75046c425e20c14a211ac36d4",
+    "stream": "90a8325fd9e2870aa8e30e1216283160a056025d7d6b380c1a287ce44f6d5d27",
+}
+
+
+def _sha(arrays) -> str:
+    """Of each (header, array): the header, then the array's bytes."""
+    h = hashlib.sha256()
+    for head, a in arrays:
+        h.update(head.encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def test_sambert_hifigan_bits_unchanged():
+    """The model `sambert_hifigan` at its TINY size on the CPU, seed
+    2**31 + 12345: the weights bundle (every tensor's name, shape, dtype
+    and bytes, in state_dict order), the f32 reference's wavs of one call
+    of four texts (lengths 3, 9, 5, 12, drawn by `traffic.text` from
+    numpy's generator at 7) and its stream of them in chunks of 4 frames
+    with 2 of context.  The digests were recorded from commit 364a076,
+    before the model was a file of its own, by the same computation
+    through `common.make_weights`, `reference.acoustic.synthesize_batch`
+    and `stream_chunks`, with torch 2.13.0's CPU build on one thread (the
+    batch reference's bits differ on 8 threads and more)."""
+    if torch.__version__.split("+")[0] != "2.13.0":
+        pytest.skip(f"the digests are torch 2.13.0's, this is {torch.__version__}")
+    from harness.models import sambert_hifigan as m
+    from reference.precision import ieee_f32, rounder
+
+    cpu = torch.device("cpu")
+    c = {**load_cell("tts-batch").config, **m.TINY}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        W = m.weights(c, m.config(c), 2 ** 31 + 12345, cpu)
+        rng = np.random.default_rng(7)
+        texts = [traffic.text(rng, n) for n in (3, 9, 5, 12)]
+        with ieee_f32():
+            wavs = m.reference_batch(W, c, texts, rounder("f32"), cpu)
+            chunks = m.reference_stream(W, c, texts, 4, 2, rounder("f32"), cpu)
+    finally:
+        torch.set_num_threads(threads)
+    got = {"weights": _sha((f"{k}{tuple(v.shape)}{v.dtype}", v.contiguous().numpy())
+                           for sd in W for k, v in sd.items()),
+           "batch": _sha((str(w.shape), w) for w in wavs),
+           "stream": _sha((str(w.shape), w) for s in chunks for w in s)}
+    assert got == GOLDEN
