@@ -113,6 +113,10 @@ class GeneratorConfig:
     upsample_initial_channel: int = 512
     resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
     resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    # the LeakyReLU before conv_post, and whether conv_post has a bias: VITS's
+    # generator uses torch's default slope 0.01 there and no bias
+    post_lrelu_slope: float = 0.1
+    post_bias: bool = True
 
 
 @dataclass(frozen=True)
@@ -275,6 +279,48 @@ class TTSConfig:
     loss_weights: LossWeights = field(default_factory=LossWeights)
     training: TrainingConfig = field(default_factory=TrainingConfig)
     paths: PathsConfig = field(default_factory=PathsConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+
+
+@dataclass(frozen=True)
+class VitsModelConfig:
+    """VITS's inference path (Kim, Kong and Son 2021; jaywalnut310/vits
+    configs/ljs_base.json and models.py): the text encoder, the stochastic
+    duration predictor, the coupling flow.  `n_vocab` defaults to the front
+    end's vocabulary (its symbols stand in for ljs_base's 178)."""
+
+    n_vocab: int = 300
+    inter_channels: int = 192
+    hidden_channels: int = 192
+    filter_channels: int = 768
+    n_heads: int = 2
+    n_layers: int = 6
+    kernel_size: int = 3
+    window_size: int = 4
+    dp_filter_channels: int = 192
+    dp_kernel_size: int = 3
+    dp_flows: int = 4
+    spline_bins: int = 10
+    spline_tail_bound: float = 5.0
+    flow_couplings: int = 4
+    flow_layers: int = 4
+    flow_kernel_size: int = 5
+    flow_dilation_rate: int = 1
+    noise_scale: float = 0.667
+    noise_scale_w: float = 0.8
+    length_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class VitsConfig:
+    """Root config of a VITS voice: its model, the HiFi-GAN V1 generator it
+    decodes with (from the flow's channels, LeakyReLU 0.01 and no bias before
+    the last conv), the audio rate and the pipeline's buckets."""
+
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    model: VitsModelConfig = field(default_factory=VitsModelConfig)
+    generator: GeneratorConfig = field(default_factory=lambda: GeneratorConfig(
+        n_mels=192, post_lrelu_slope=0.01, post_bias=False))
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
 
@@ -455,6 +501,22 @@ def validate_config(cfg: TTSConfig) -> None:
             raise ConfigError(f"training.{name}.ema_decay must be in [0, 1)")
         if tr.accumulate_steps < 1:
             raise ConfigError(f"training.{name}.accumulate_steps must be >= 1")
+
+
+def validate_vits_config(cfg: VitsConfig) -> None:
+    m, g = cfg.model, cfg.generator
+    if math.prod(g.upsample_rates) != cfg.audio.hop_length:
+        raise ConfigError(f"Product of upsample_rates {g.upsample_rates} must equal hop_length "
+                          f"{cfg.audio.hop_length}")
+    if g.n_mels != m.inter_channels:
+        raise ConfigError(f"the generator reads the flow's {m.inter_channels} channels, "
+                          f"not {g.n_mels}")
+    if m.hidden_channels % m.n_heads:
+        raise ConfigError("hidden_channels must be divisible by n_heads")
+    if m.kernel_size % 2 == 0 or m.flow_kernel_size % 2 == 0 or m.dp_kernel_size % 2 == 0:
+        raise ConfigError("VITS's convolutions pad evenly: odd kernel sizes only")
+    if m.inter_channels % 2:
+        raise ConfigError("the coupling flow splits inter_channels in halves")
 
 
 def mel_config_fingerprint(a: AudioConfig) -> Tuple:

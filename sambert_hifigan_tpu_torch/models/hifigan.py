@@ -2,7 +2,10 @@
 
 Generator: mel [B, n_mels, Tfrm] -> wav [B, 1, Tfrm * hop].  conv_pre(k7) ->
 per stage [LeakyReLU(0.1) -> ConvTranspose1d (padding (k-u)//2, so T_wav ==
-Tfrm * prod(upsample_rates)) -> MRF] -> LeakyReLU -> conv_post(k7) -> tanh.
+Tfrm * prod(upsample_rates)) -> MRF] -> LeakyReLU(`post_lrelu_slope`, 0.1
+by default) -> conv_post(k7, a bias unless `post_bias` is off) -> tanh.
+VITS's decoder is this generator over the flow's channels (`n_mels` 192),
+with slope 0.01 and no bias there.
 No weight norm; the MRF AVERAGES its ResBlocks, and every conv zero-pads its
 own input.
 
@@ -103,7 +106,8 @@ class HiFiGANGenerator(nn.Module):
             cin, cout = c0 // (2 ** i), c0 // (2 ** (i + 1))
             self.ups.append(ConvTranspose1d(cin, cout, k, stride=u, padding=(k - u) // 2))
             self.mrfs.append(MRF(cout, cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes))
-        self.conv_post = Conv1d(c0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3)
+        self.conv_post = Conv1d(c0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3,
+                                bias=cfg.post_bias)
 
     @torch.no_grad()
     def pack(self, dtype: torch.dtype) -> List[MRFWeights]:
@@ -124,7 +128,7 @@ class HiFiGANGenerator(nn.Module):
                 x = self.mrfs[i](x, dtype)
             else:
                 x = mrf(x.float().contiguous(), mrf_weights[i]).to(dtype)
-        x = conv1d(self.conv_post, _lrelu(x), dtype)
+        x = conv1d(self.conv_post, F.leaky_relu(x, self.config.post_lrelu_slope), dtype)
         return torch.tanh(x.float())
 
 

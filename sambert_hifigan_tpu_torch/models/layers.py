@@ -164,8 +164,9 @@ def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 def conv1d(m: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """torch Conv1d module `m` applied in `dtype`."""
-    return F.conv1d(x.to(dtype), m.weight.to(dtype), m.bias.to(dtype), m.stride, m.padding,
-                    m.dilation, m.groups)
+    bias = None if m.bias is None else m.bias.to(dtype)
+    return F.conv1d(x.to(dtype), m.weight.to(dtype), bias, m.stride, m.padding, m.dilation,
+                    m.groups)
 
 
 def conv_transpose1d(m: nn.ConvTranspose1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

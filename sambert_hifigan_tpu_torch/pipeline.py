@@ -30,6 +30,10 @@ mel comes back in bf16, and each MRF takes and gives bf16.  The kernels'
 weights are bf16 on either device then, so the CPU's plain versions round
 where the kernels do.  f32 is the default, as in the JAX package.
 
+`VitsPipeline` runs a VITS voice through the same one-shot path: the
+acoustic pass is VITS's (text encoder, stochastic duration flow, coupling
+flow; models/vits.py) and the vocoder the same generator on K2.
+
 Data-parallel serving (`devices=[...]`, the JAX package's `mesh=`): one
 replica of the weights per device, the batch padded to a multiple of the
 device count and split into contiguous rows, one frame bucket and at most
@@ -48,11 +52,14 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels, tracing
-from .config import TTSConfig
+from .config import TTSConfig, VitsConfig, validate_vits_config
 from .kernels import kernel_dtype, resolve_device
 from .models.acoustic_model import AcousticOutput, SAMBERTAcousticModel, acoustic_inference
 from .models.ar_decoder import ar_decode_chunk, decode_memory, init_packed_carry, pack_decoder
 from .models.hifigan import HiFiGANGenerator
+from .models.vits import (
+    CapturedPass, VitsArgs, VitsModel, intersperse, load_vits_state, row_seed, vits_inference,
+)
 from .parallel.mesh import shard_rows
 from .text.frontend import FrontEnd, pick_bucket
 from .weights import random_acoustic_model, random_generator
@@ -114,8 +121,7 @@ class TTSPipeline:
 
     def __init__(self, cfg: TTSConfig, acoustic_state, generator_state, device=None,
                  devices=None, dtype: torch.dtype = torch.float32):
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        self._check_dtype(dtype)
         self.cfg = cfg
         self.dtype = dtype
         self.devices = resolve_devices(device, devices)
@@ -138,6 +144,11 @@ class TTSPipeline:
                                               dtype=dtype)
                                   for dev in self.devices[1:]]
 
+    @staticmethod
+    def _check_dtype(dtype: torch.dtype) -> None:
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+
     def _features(self, texts):
         """Bucket-padded frontend features on the host: (tph, arrays)."""
         feat = self.frontend.batch_forward(texts)
@@ -159,8 +170,13 @@ class TTSPipeline:
         d = len(self.replicas)
         texts = list(texts) + [texts[-1]] * (-len(texts) % d)
         tph, feats = self._features(texts)
-        return tph, [tuple(torch.from_numpy(shard_rows(a, d, r)).to(rep.device) for a in feats)
+        return tph, [self._to_device(tuple(shard_rows(a, d, r) for a in feats), rep.device)
                      for r, rep in enumerate(self.replicas)]
+
+    def _to_device(self, arrays, device):
+        """One replica's rows of the front end's arrays as its acoustic
+        pass's arguments."""
+        return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
     def _initial_bucket(self, tph: int, duration_scale: float) -> int:
         """~12 frames per phoneme scaled by the duration control, clamped into
@@ -298,6 +314,14 @@ class TTSPipeline:
         self._warn_truncated(need, max_frames)
         return self._gather(outs)
 
+    @staticmethod
+    def _count_pass(per_replica, max_frames: int) -> None:
+        """Counters of one synthesize_batch pass, from each replica's totals
+        on the host."""
+        if tracing.enabled():  # K1 ran each replica to its longest row, within the bucket
+            tracing.count("batch.k1_steps",
+                          sum(min(int(t.max()), max_frames) for t in per_replica))
+
     def _vocode(self, mel_btc: torch.Tensor) -> torch.Tensor:
         """This replica's vocoder on its own device."""
         with _ieee_f32():
@@ -339,12 +363,14 @@ class TTSPipeline:
         energy_scale: float = 1.0,
         max_frames: Optional[int] = None,
     ) -> List[np.ndarray]:
-        """Batch text -> wav with one host sync on the happy path: acoustic
+        """Batch text -> wav with one wait on the happy path: acoustic
         inference and vocoding are enqueued back to back on the estimated
-        frame bucket (or the caller-pinned `max_frames`), then the wavs and
-        totals come back together.  Only a bucket overflow pays a second
-        pass.  The batch is padded (repeating the last text) up to the next
-        runtime.batch_buckets size; outputs are sliced back to len(texts).
+        frame bucket (or the caller-pinned `max_frames`), then the totals
+        come back, and each row's wav cut to its frames (`_fetch_rows`).
+        Only a bucket overflow pays a second pass (its first pass's wavs are
+        not copied).  The batch is padded (repeating the last text) up to
+        the next runtime.batch_buckets size; outputs are sliced back to
+        len(texts).
 
         Over d devices the padded batch is padded again to a multiple of d
         and split; every replica is enqueued before the first copy, and the
@@ -370,23 +396,25 @@ class TTSPipeline:
                 tracing.count("batch.frames_decoded", rows * max_frames)
                 with tracing.span("batch.dispatch"):
                     outs = self._dispatch(parts, max_frames, controls, vocode=True)
-                # each wav copy waits for its own device only, and every device's
-                # work is already enqueued; the totals copies then find them drained
+                # each totals copy waits for its own device only, and every device's
+                # work is already enqueued; the wavs come after, each row cut to its
+                # own frames, and not from a pass that is run again
                 with tracing.span("batch.fetch"):
-                    wav_np = np.concatenate([wav.cpu().numpy() for _, wav in outs])
                     per_replica = [out.total_frames.cpu().numpy() for out, _ in outs]
                     totals = np.concatenate(per_replica)
-                if tracing.enabled():  # K1 ran each replica to its longest row, within the bucket
-                    tracing.count("batch.k1_steps",
-                                  sum(min(int(t.max()), max_frames) for t in per_replica))
-                need = int(totals.max())
-                if need <= max_frames or max_frames >= max(buckets):
+                    need = int(totals.max())
+                    again = need > max_frames and max_frames < max(buckets)
+                    if not again:
+                        wavs = [row for (_, wav), t in zip(outs, per_replica)
+                                for row in _fetch_rows(wav, t, max_frames, self.hop)]
+                self._count_pass(per_replica, max_frames)
+                if not again:
                     break
                 max_frames = pick_bucket(min(need, max(buckets)), buckets)
             self._warn_truncated(need, max_frames)
-            frames = [min(int(totals[i]), max_frames) for i in range(n)]
-            tracing.count("batch.frames_returned", sum(frames))
-            return [np.asarray(wav_np[i, 0, : frames[i] * self.hop]) for i in range(n)]
+            wavs = wavs[:n]
+            tracing.count("batch.frames_returned", sum(len(w) for w in wavs) // self.hop)
+            return wavs
 
     # ---- streaming -----------------------------------------------------------
 
@@ -438,6 +466,23 @@ class TTSPipeline:
             frames = min(chunk_frames, total - start)
             tracing.count("stream.frames_returned", frames)
             yield wav[: frames * self.hop]
+
+
+def _fetch_rows(wav: torch.Tensor, totals, max_frames: int, hop: int) -> List[np.ndarray]:
+    """Rows of wav [B, 1, T] each cut to its total frames (at most the
+    bucket), as host arrays: gathered on the device into one buffer, copied
+    in one transfer (through page-locked memory from a card, so the copy
+    does not wait on the host's paging), split into views on the host."""
+    sizes = [min(int(t), max_frames) * hop for t in totals]
+    flat = torch.cat([wav[i, 0, :n] for i, n in enumerate(sizes)])
+    if flat.is_cuda:
+        staged = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        staged.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
+        host = staged.numpy().copy()  # the page-locked block goes back to torch's cache
+    else:
+        host = flat.numpy()
+    return np.split(host, np.cumsum(sizes)[:-1])
 
 
 class _StreamRun:
@@ -517,6 +562,91 @@ class _StreamRun:
         vocode on the device."""
         self._ensure_decoded(min(start + self.chunk + self.context, total))
         return self._window_device(start)
+
+
+class VitsPipeline(TTSPipeline):
+    """Text -> wav with a VITS voice (models/vits.py) and the HiFi-GAN
+    generator on K2: TTSPipeline's one-shot path (the buckets, the overflow
+    re-run, the fetch and the trim, replicas over `devices`) with VITS's
+    acoustic pass in SAM-BERT's place, and no K1.  `state` is a VITS
+    state_dict (VITS's names, `dec.` the generator's, weight norm folded or
+    not); `noise_seed` and each row's tokens seed that row's noise
+    (models/vits.row_seed), so a text's audio depends on neither its bucket
+    nor its neighbours.
+
+    The phoneme bucket is picked on the front end's count, as SAM-BERT's is;
+    the ids are then interspersed with blanks to 2 x bucket + 1 tokens (the
+    front end's tones and boundaries go unused).  `duration_scale`
+    multiplies the configuration's length_scale; VITS has no pitch or energy
+    control, and `stream` is SAM-BERT's alone.  On the card the acoustic
+    pass replays CUDA graphs captured at each shape's first call
+    (`models.vits.CapturedPass`; `warmup` captures the buckets it runs)."""
+
+    def __init__(self, cfg: VitsConfig, state, device=None, devices=None,
+                 dtype: torch.dtype = torch.float32, noise_seed: int = 0):
+        self._check_dtype(dtype)
+        validate_vits_config(cfg)
+        self.cfg, self.dtype, self.noise_seed = cfg, dtype, noise_seed
+        self.devices = resolve_devices(device, devices)
+        self.device = self.devices[0]
+        acoustic_state, generator_state = load_vits_state(state, cfg.generator)
+        self.vits = VitsModel(cfg.model)
+        self.vits.load_state_dict(acoustic_state)
+        self.vits.to(self.device).eval().cast_(dtype)
+        self.generator = HiFiGANGenerator(cfg.generator)
+        self.generator.load_state_dict(generator_state)
+        self.generator.to(self.device).eval()
+        self.kernel_dtype = torch.bfloat16 if dtype == torch.bfloat16 else kernel_dtype(self.device)
+        self.mrf_weights = self.generator.pack(self.kernel_dtype)
+        self.frontend = FrontEnd(cfg.model.n_vocab)
+        self.hop = cfg.audio.hop_length
+        self.captured = {}  # (rows, tokens, frames) -> CapturedPass, on the card
+        self.replicas = [self] + [VitsPipeline(cfg, state, device=dev, dtype=dtype,
+                                               noise_seed=noise_seed)
+                                  for dev in self.devices[1:]]
+
+    def _features(self, texts):
+        """(tph, (tokens [B, 2 tph + 1], valid tokens [B], row seeds [B]))."""
+        feat = self.frontend.batch_forward(texts)
+        tph = pick_bucket(feat.ph_ids.shape[1], self.cfg.runtime.phoneme_buckets)
+        ids = np.zeros((len(texts), tph), np.int64)
+        ids[:, :feat.ph_ids.shape[1]] = feat.ph_ids
+        tokens = intersperse(ids)
+        lengths = 2 * feat.lengths.astype(np.int64) + 1
+        seeds = np.array([row_seed(self.noise_seed, tokens[i, :n]) for i, n in enumerate(lengths)],
+                         np.int64)
+        return tph, (tokens, lengths, seeds)
+
+    def _to_device(self, arrays, device) -> VitsArgs:
+        tokens, lengths, seeds = arrays
+        return VitsArgs(torch.from_numpy(tokens).to(device), torch.from_numpy(lengths).to(device),
+                        [int(s) for s in seeds], int(lengths.sum()))
+
+    def _acoustic(self, args: VitsArgs, max_frames, duration_scale, pitch_shift, energy_scale):
+        if pitch_shift != 0.0 or energy_scale != 1.0:
+            raise ValueError("VITS has no pitch or energy control")
+        tracing.count("vits.tokens", args.n_tokens)
+        rt = self.cfg.runtime
+        sizes = (max_frames, 2 * max(rt.phoneme_buckets) + 1, max(rt.frame_buckets))
+        length_scale = self.cfg.model.length_scale * duration_scale
+        with _ieee_f32():
+            if self.device.type != "cuda":
+                return vits_inference(self.vits, args, *sizes, length_scale)
+            key = (*args.tokens.shape, max_frames)
+            if key not in self.captured:
+                self.captured[key] = CapturedPass(self.vits, *args.tokens.shape, *sizes,
+                                                  self.device)
+            return self.captured[key](args, length_scale)
+
+    @staticmethod
+    def _count_pass(per_replica, max_frames: int) -> None:
+        if tracing.enabled():
+            tracing.count("vits.frames",
+                          sum(int(np.minimum(t, max_frames).sum()) for t in per_replica))
+
+    def stream(self, *args, **kwargs):
+        raise NotImplementedError("a VITS pipeline does not stream: streaming is SAM-BERT's "
+                                  "chunked AR decode")
 
 
 def build_pipeline_from_random_init(cfg: TTSConfig, seed: int = 0, device=None,

@@ -32,7 +32,8 @@ read, no record, no CUDA event.
   `spans()` gives the raw records, the last `RING` of them; `reset()`
   clears records, aggregates and counters.
 
-The names recorded (DynamicBatcher, TTSPipeline.stream, synthesize_batch):
+The names recorded (DynamicBatcher, TTSPipeline.stream, synthesize_batch,
+VitsPipeline.synthesize_batch):
 
   batcher.queue_wait   a request's put to the worker's pop
   batcher.round        one pass of the worker's loop that had work
@@ -49,13 +50,18 @@ The names recorded (DynamicBatcher, TTSPipeline.stream, synthesize_batch):
   batch.acoustic       each replica's acoustic pass (host, device)
   batch.vocode         each replica's vocode (host, device)
   batch.fetch          the host's wait in the wav and totals copies
+  vits.encode          a VITS pass's text encoder, inside batch.acoustic (host, device)
+  vits.duration        its duration flow, durations and path (host, device)
+  vits.flow            its prior sample and coupling flow (host, device)
 
 Counters: batcher.rounds, batcher.admitted (new streams), stream.k1_steps,
 stream.frames_returned, stream.overflow_restarts, batch.overflow_reruns,
 batch.rows_padded (batch-bucket and replica padding), batch.frames_decoded
 (rows x frame bucket per pass), batch.k1_steps (the steps K1 ran per pass:
 each replica's longest row within the bucket, summed over replicas),
-batch.frames_returned.
+batch.frames_returned; of a VITS pass (VitsPipeline, which counts no
+batch.k1_steps): vits.tokens (the rows' valid tokens, blanks included) and
+vits.frames (the rows' frames within the bucket, after the fetch).
 """
 
 from __future__ import annotations

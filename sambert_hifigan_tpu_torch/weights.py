@@ -23,10 +23,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .config import TTSConfig
+from .config import TTSConfig, VitsConfig
 from .models.acoustic_model import SAMBERTAcousticModel
 from .models.hifigan import HiFiGANGenerator
 from .models.layers import init_defaults_
+from .models.vits import VitsModel, vits_state_from_generator
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -222,3 +223,15 @@ def random_generator(cfg: TTSConfig, gen: torch.Generator) -> HiFiGANGenerator:
     model = HiFiGANGenerator(cfg.vocoder.generator)
     init_defaults_(model, gen)
     return model
+
+
+@torch.no_grad()
+def random_vits_state(cfg: VitsConfig, gen: torch.Generator) -> StateDict:
+    """A VITS state_dict under VITS's names (weight norm folded) with seeded
+    random weights: VitsModel.init_weights_ and the generator's torch
+    defaults."""
+    model = VitsModel(cfg.model)
+    model.init_weights_(gen)
+    dec = HiFiGANGenerator(cfg.generator)
+    init_defaults_(dec, gen)
+    return {**model.state_dict(), **vits_state_from_generator(dec.state_dict(), cfg.generator)}

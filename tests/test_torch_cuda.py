@@ -647,3 +647,79 @@ def test_kernels_launch_on_a_second_card(cuda_device):
 
     split = _replica_rows_match_direct_calls(["cuda:0", "cuda:1"])
     assert [r.decode_weights.stream.device for r in split.replicas] == [dev0, dev1]
+
+
+# ---- VITS: the acoustic pass without K1, the generator on K2 ------------------------
+
+
+def _vits_card_config():
+    from sambert_hifigan_tpu_torch import config as c
+
+    return c.VitsConfig(
+        audio=c.AudioConfig(hop_length=16),
+        model=c.VitsModelConfig(inter_channels=16, hidden_channels=32, filter_channels=64,
+                                n_layers=2, dp_filter_channels=32, flow_couplings=2,
+                                flow_layers=2),
+        generator=c.GeneratorConfig(n_mels=16, upsample_rates=(4, 4),
+                                    upsample_kernel_sizes=(8, 8), upsample_initial_channel=128,
+                                    post_lrelu_slope=0.01, post_bias=False),
+        runtime=c.RuntimeConfig(phoneme_buckets=(8, 16), frame_buckets=(64, 128, 256)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-3), (torch.bfloat16, 3e-2)])
+def test_vits_pipeline_on_card_matches_reference(cuda_device, dtype, tol):
+    """VITS at a small size (hidden 32, 2 layers, 2 couplings; the generator
+    at K2's widths 64 and 32) on the card against the plain f32 reference
+    (tests/vits_reference.py) on the card, 6 frames a token: every length
+    exactly, no K1 launch and one K2 launch a stage; the f32 pipeline
+    within K2's tolerance (5e-3: its bf16 weights), the bf16 one within
+    3e-2 (bf16 through the encoder, the flow and the generator)."""
+    from sambert_hifigan_tpu_torch.pipeline import VitsPipeline
+    from sambert_hifigan_tpu_torch.text.frontend import FrontEnd
+    from sambert_hifigan_tpu_torch.weights import random_vits_state
+    from tests import vits_reference as ref
+    from tests.test_torch_vits import pin, ref_config
+
+    cfg = _vits_card_config()
+    state = pin(random_vits_state(cfg, torch.Generator().manual_seed(0)), 5.5, 1e-4)
+    state = {k: v.to(cuda_device) for k, v in state.items()}
+    pipe = VitsPipeline(cfg, state, device=cuda_device, dtype=dtype, noise_seed=3)
+    before = k1.launches, k2.launches
+    got = pipe.synthesize_batch(SERVE_TEXTS)
+    torch.cuda.synchronize()
+    assert k1.launches == before[0] and k2.launches - before[1] == 2
+    fe = FrontEnd(cfg.model.n_vocab)
+    rows = [fe.text_to_sequence(t)[0] for t in SERVE_TEXTS]
+    want = ref.synthesize_batch(state, ref_config(cfg), rows, ref.identity, cuda_device, 3)
+    assert [len(w) for w in got] == [len(w) for w in want] == [16 * 6 * (2 * len(r) + 1)
+                                                              for r in rows]
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    print(f"VITS {dtype} on the card: max |port - reference| {err:.3e}")
+    assert err < tol, err
+
+
+def test_vits_captured_pass_equals_op_by_op(cuda_device):
+    """On the card the acoustic pass replays CUDA graphs captured at a
+    shape's first call: their outputs are the bits of the same pass run op
+    by op, and later calls at the same shape with other texts (new tokens,
+    lengths and noise in the graphs' inputs) or another duration scale
+    reuse the graphs and match again."""
+    from sambert_hifigan_tpu_torch.models import vits as pv
+    from sambert_hifigan_tpu_torch.pipeline import VitsPipeline, _ieee_f32
+    from sambert_hifigan_tpu_torch.weights import random_vits_state
+
+    cfg = _vits_card_config()
+    state = random_vits_state(cfg, torch.Generator().manual_seed(1))
+    pipe = VitsPipeline(cfg, state, device=cuda_device, dtype=torch.bfloat16, noise_seed=5)
+    for texts, scale in ((SERVE_TEXTS, 1.0), (["一二三四五六", "山", "abc", "水"], 1.0),
+                         (SERVE_TEXTS, 1.5)):
+        tph, parts = pipe._split_args(texts)
+        got = pipe._acoustic(parts[0], 128, scale, 0.0, 1.0)
+        with _ieee_f32():
+            want = pv.vits_inference(pipe.vits, parts[0], 128, 33, 256, scale)
+        assert len(pipe.captured) == 1
+        for a, b in ((got.mel_pred, want.mel_pred), (got.total_frames, want.total_frames),
+                     (got.frame_mask, want.frame_mask),
+                     (got.predictions["log_duration"], want.predictions["log_duration"])):
+            assert torch.equal(a, b)
+        assert got.mel_pred.abs().max() > 0

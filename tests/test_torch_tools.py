@@ -157,9 +157,14 @@ def test_debug_levels(monkeypatch, capsys):
 
 @pytest.mark.parametrize("d", [256, 512, 1024])
 def test_scaled_cfg_matches_jax(d):
+    """Every field the JAX config has is equal; the port's generator has two
+    more (VITS's last LeakyReLU and conv_post bias), which must hold the
+    JAX generator's fixed 0.1 and bias."""
     jax_script = importlib.import_module("scripts.bench_scaling")
-    assert dataclasses.asdict(bench_scaling.scaled_cfg(d)) == dataclasses.asdict(
-        jax_script.scaled_cfg(d))
+    port = dataclasses.asdict(bench_scaling.scaled_cfg(d))
+    gen = port["vocoder"]["generator"]
+    assert (gen.pop("post_lrelu_slope"), gen.pop("post_bias")) == (0.1, True)
+    assert port == dataclasses.asdict(jax_script.scaled_cfg(d))
 
 
 def _small_acoustic_cfg(d=32):
