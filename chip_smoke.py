@@ -5,13 +5,14 @@
 
 Builds the hand-written CUDA kernels from `sambert_hifigan_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the full default
-width (K1 at B = 1, 4 and 16, at B = 16 over the largest frame bucket, which
-takes two clusters, and at the main path's own shape: the texts' frame bucket
-and each row's valid frames, from the pipeline, without lengths and, as the
-main path calls it, with each row's length, the frames past it exactly 0; K2
-also on a 5-frame
-utterance, shorter than its halo), reports each K2 stage's TFLOP/s and share
-of its bound and K1's per-step stream bound, then drives the one-shot text ->
+width (K1 at B = 1, 4 and 16, at B = 16 over the largest frame bucket, both
+B = 16 shapes also with lengths like a tts-batch call's, spread over the
+clusters the card runs at once, and at the main path's own shape: the
+texts' frame bucket and each row's valid frames, from the pipeline, without
+lengths and, as the main path calls it, with each row's length, the frames
+past it exactly 0; K2 also on a 5-frame utterance, shorter than its halo),
+reports each K2 stage's TFLOP/s and share of its bound and K1's per-step
+stream bound, then drives the one-shot text ->
 wav path (`synthesize_batch`, `synthesize`) of a pipeline with random
 weights made from a seed, and checks that every kernel of that path launched.
 Phase 5 holds K1 launched chunk by chunk from its carry bit for bit against
@@ -166,13 +167,20 @@ def nbytes(*tensors) -> int:
 
 # ---- phase 2: K1 ------------------------------------------------------------
 
+
+def cycle_valid(longest: int) -> dict:
+    """16 rows like a tts-batch call's: row 5 `longest` frames (610 at the
+    1024-frame bucket, 1090 at 2048), the others 3/14 to 13/14 of it."""
+    return {r: longest if r == 5 else longest * (3 + (37 * r) % 11) // 14 for r in range(16)}
+
+
 # (name, B, T = S, valid frames of the rows that have padding)
 K1_SHAPES = (
     ("B1", 1, 1024, {0: 900}),
     ("B4-T256", 4, 256, {0: 200, 1: 120, 3: 64}),
     ("B4", 4, 1024, {0: 1000, 1: 700, 3: 300}),
-    ("B16", 16, 1024, {}),
-    ("B16-T2048", 16, 2048, {0: 1500, 5: 700}),  # the largest buckets: two clusters of 8 rows
+    ("B16", 16, 1024, cycle_valid(610)),
+    ("B16-T2048", 16, 2048, cycle_valid(1090)),  # the largest buckets
 )
 
 
@@ -256,9 +264,11 @@ def phase_k1(cfg, shapes, dev, gen, with_lengths=()):
     """K1 against its plain version at each shape, timed, without lengths;
     for the shapes named in `with_lengths` also a row `<name>-lengths` that
     hands both each row's valid frames as its length (the main path's call),
-    held to the same tolerance."""
+    held to the same tolerance.  The first call of each row counts the
+    clusters it launched (`k1.clusters`), which must be its plan's."""
     import torch
 
+    from sambert_hifigan_tpu_torch import tracing
     from sambert_hifigan_tpu_torch.ops import ar_decode as k1
 
     rows = {}
@@ -270,10 +280,15 @@ def phase_k1(cfg, shapes, dev, gen, with_lengths=()):
                                    device=dev)
             runs.append((f"{name}-lengths", lengths))
         for label, lengths in runs:
+            tracing.reset()
+            tracing.enable(True)
             t0 = time.perf_counter()
             out = k1.ar_decode(w, mk, mv, bias, t, lengths)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
+            tracing.enable(False)
+            launched = tracing.snapshot()["counters"].get("k1.clusters", 0)
+            tracing.reset()
             t0 = time.perf_counter()
             ref = k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, b, t), 0, t, lengths)[1]
             torch.cuda.synchronize()
@@ -286,8 +301,10 @@ def phase_k1(cfg, shapes, dev, gen, with_lengths=()):
             ms = cuda_ms(lambda: k1.ar_decode(w, mk, mv, bias, t, lengths), reps=2)
             moved, flops = k1_work(w, mk, bias, t, lengths)
             bms, by = bound_ms(moved, flops)
-            plan = k1.launch_plan(b, t, t, mk.shape[0], mk.shape[3], w.n_heads,
-                                  w.w1.shape[-1], w.mel_w.shape[1], w.pe.shape[0])
+            card = k1.co_resident_clusters(dev, mk.shape[3], w.n_heads, w.w1.shape[-1],
+                                           w.mel_w.shape[1])
+            plan = k1.card_plan(dev, b, t, t, mk.shape[0], mk.shape[3], w.n_heads,
+                                w.w1.shape[-1], w.mel_w.shape[1], w.pe.shape[0])
             row = dict(shape=label, B=b, T=t, valid=valid,
                        lengths=None if lengths is None else keep, steps=max(keep),
                        max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
@@ -296,8 +313,12 @@ def phase_k1(cfg, shapes, dev, gen, with_lengths=()):
                        stream_bound_ms=k1_stream_ms(w, mk, bias, t, lengths),
                        plan=dict(cluster=plan.cluster, rows=plan.rows, groups=plan.groups,
                                  stages=plan.stages, smem=plan.smem),
-                       first_call_s=first_s)
+                       max_active_clusters=card, launched_clusters=launched,
+                       ms_per_step=ms / max(keep), first_call_s=first_s)
             log("[k1]", json.dumps(row))
+            if launched != plan.groups:
+                raise AssertionError(f"K1 {label} launched {launched} clusters, its plan "
+                                     f"{plan.groups}")
             if not finite:
                 raise AssertionError(f"K1 {label}: non-finite output")
             if not zeros:
@@ -2585,9 +2606,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     pipe = build_pipeline_from_random_init(cfg, seed=0)
     main_shape = main_path_shape(pipe)
-    k1_rows = phase_k1(cfg, K1_SHAPES + (main_shape,), dev, gen, with_lengths=("main-path",))
-    if k1_rows["B16-T2048"]["plan"]["groups"] < 2:
-        raise AssertionError("K1 at B=16, T=2048 ran on one cluster, not two")
+    k1_rows = phase_k1(cfg, K1_SHAPES + (main_shape,), dev, gen,
+                       with_lengths=("main-path", "B16", "B16-T2048"))
+    for label in ("B16-lengths", "B16-T2048-lengths"):
+        row = k1_rows[label]
+        if not 1 < row["plan"]["groups"] <= row["max_active_clusters"]:
+            raise AssertionError(f"K1 {label} did not spread its rows over the clusters the "
+                                 f"card runs at once: {row}")
     k2_rows = phase_k2(pipe, 1024, (1, 2, 4), gen, dev)
     # a short utterance: T = 40 at stage 0, under the k = 11 chain's halo
     phase_k2(pipe, 5, (1, 4), gen, dev, timed=False)

@@ -55,7 +55,15 @@
 // Design, against each of those costs:
 // * One launch for the whole batch on thread-block clusters (launch_plan in
 //   ops/ar_decode.py).  A cluster of C CTAs (16, one per SM) decodes a group
-//   of up to 16 batch rows; groups are independent clusters.
+//   of up to 16 batch rows; groups are independent clusters.  The plan
+//   spreads the rows over as many clusters as the card runs at once
+//   (ar_decode_max_clusters), ceil(B / that count) rows each, and gives the
+//   shared memory the fewer rows free to the weight ring.  The decode is
+//   latency-bound: a cluster pays its exchanges a step whatever its rows,
+//   but every phase that loops over rows inside a CTA (scores, softmax
+//   statistics, the value pass, the split-K sums and sends) grows with them,
+//   so SMs that would sit idle are worth more than sharing one weight
+//   stream among more rows; the extra clusters read the weights from L2.
 // * The rows of a group share one weight stream.  Each CTA owns 1/C of the
 //   output columns of every matrix (w2: 1/C of its K rows).  Its slices are
 //   packed once per pipeline, in step order and as mma.sync's 16 x 8 B tiles
@@ -1003,6 +1011,36 @@ __global__ void __launch_bounds__(NT, 1) ar_decode_kernel(Params p) {
   cluster_sync();  // no peer still sends to this CTA
 }
 
+// The kernel for widths D and H on clusters of C (the default decoder's
+// widths on 16-CTA clusters get constant shapes), its shared-memory and
+// cluster-size attributes set, and the configuration of a launch of `groups`
+// clusters; `attr` holds the cluster attribute cfg points to.
+cudaError_t configure(int D, int H, int C, int groups, int smem, cudaStream_t stream,
+                      void (**kernel)(Params), cudaLaunchConfig_t* cfg,
+                      cudaLaunchAttribute* attr) {
+  *kernel = D == 256 && H == 8 && C == 16 ? ar_decode_kernel<256, 8, 16>
+                                          : ar_decode_kernel<0, 0, 0>;
+  cudaError_t err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(groups * C);
+  cfg->blockDim = dim3(NT);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int err) {
@@ -1070,27 +1108,12 @@ extern "C" int ar_decode_launch(
   }
   if (stride != longest) return (int)cudaErrorInvalidValue;
 
-  // the default decoder's widths on 16-CTA clusters get constant shapes
-  void (*kernel)(Params) = D == 256 && H == 8 && C == 16 ? ar_decode_kernel<256, 8, 16>
-                                                         : ar_decode_kernel<0, 0, 0>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (C > 8) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(groups * C);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(cuda_stream);
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  void (*kernel)(Params);
+  cudaError_t err = configure(D, H, C, groups, smem, static_cast<cudaStream_t>(cuda_stream),
+                              &kernel, &cfg, attr);
+  if (err != cudaSuccess) return (int)err;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
@@ -1098,4 +1121,21 @@ extern "C" int ar_decode_launch(
   err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of C CTAs, each with `smem` bytes of dynamic shared
+// memory, the current card runs at once for the widths D and H (what
+// cudaOccupancyMaxActiveClusters gives for the kernel a plan of these runs).
+// launch_plan spreads a batch's rows over at most this many clusters.
+// Returns 0 or a cudaError_t; the count goes to *clusters.
+extern "C" int ar_decode_max_clusters(int D, int H, int C, int smem, int* clusters) {
+  *clusters = 0;
+  if (!(C == 1 || C == 2 || C == 4 || C == 8 || C == 16) || smem < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  void (*kernel)(Params);
+  cudaError_t err = configure(D, H, C, 1, smem, nullptr, &kernel, &cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }

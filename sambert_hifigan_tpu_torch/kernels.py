@@ -29,9 +29,10 @@ MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "ar_decode": ("ar_decode_launch", [_P] * 20 + [_I] * 18 + [_P]),
-    "mrf": ("mrf_launch", [_P] * 8 + [_I] * 5 + [_P] * 5),
+_SIGNATURES = {  # each library's C functions: name -> argument types (each returns int)
+    "ar_decode": {"ar_decode_launch": [_P] * 20 + [_I] * 18 + [_P],
+                  "ar_decode_max_clusters": [_I] * 4 + [ctypes.POINTER(_I)]},
+    "mrf": {"mrf_launch": [_P] * 8 + [_I] * 5 + [_P] * 5},
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -139,10 +140,10 @@ def library(name: str) -> ctypes.CDLL:
         if not target.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(target))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

@@ -15,7 +15,11 @@ function in plain PyTorch.  There is no switch and no fallback.  The kernel
 is one launch for the whole batch on thread-block clusters; `launch_plan`
 computes its geometry on the host (the C code refuses a plan that does not
 match its own layout), `pack_stream` lays out each CTA's weight slices, and
-a cluster the card cannot schedule raises RuntimeError.
+a cluster the card cannot schedule raises RuntimeError.  The plan spreads
+the batch's rows over as many clusters as the card runs at once
+(`co_resident_clusters`, asked once per process and device), a few rows
+each, rather than packing them into as few as fit: the decode is
+latency-bound, and a cluster's step costs with the rows it carries.
 
 Numerics (the contract of the JAX package's Pallas kernel, which this
 replaces): matmul inputs and weights bf16 with f32 accumulation, biases,
@@ -31,12 +35,13 @@ decode step of the JAX package in f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 
 launches = 0  # kernel launches through `ar_decode_chunk` (never the plain version)
 
@@ -149,11 +154,12 @@ def ar_decode(
     mem_bias: torch.Tensor,  # [B, S] f32: 0 on frames, -1e9 on padding
     max_len: int,
     lengths: Optional[torch.Tensor] = None,  # [B] int32: the frames each row keeps
+    plan: Optional["Plan"] = None,
 ) -> torch.Tensor:
     """Decode `max_len` frames from a zero start frame -> mel [B, max_len,
     n_mels] f32: one chunk over a fresh carry."""
     carry = init_carry(w, mem_k.shape[1], max_len)
-    return ar_decode_chunk(w, mem_k, mem_v, mem_bias, carry, 0, max_len, lengths)[1]
+    return ar_decode_chunk(w, mem_k, mem_v, mem_bias, carry, 0, max_len, lengths, plan)[1]
 
 
 def ar_decode_chunk(
@@ -165,11 +171,14 @@ def ar_decode_chunk(
     pos0: int,
     steps: int,
     lengths: Optional[torch.Tensor] = None,
+    plan: Optional["Plan"] = None,
 ) -> Tuple[DecodeCarry, torch.Tensor]:
     """Decode steps pos0 .. pos0 + steps - 1 from `carry` -> (carry', mel
     [B, steps, n_mels] f32).  Chained chunks give the bits of one decode.
     With `lengths`, frames at or past a row's length are 0 (and so is the
-    carried frame of a finished row)."""
+    carried frame of a finished row).  `plan` is the kernel's launch plan,
+    by default `card_plan`'s (the kernel refuses one that does not match its
+    layout); the plain version has none."""
     cap = carry.k_cache.shape[2]
     if pos0 < 0 or steps < 1 or pos0 + steps > cap:
         raise ValueError(f"ar_decode_chunk: steps [{pos0}, {pos0 + steps}) outside the "
@@ -178,7 +187,7 @@ def ar_decode_chunk(
         return ar_decode_plain(w, mem_k, mem_v, mem_bias, carry, pos0, steps, lengths)
     if mem_k.device.type != "cuda":
         raise ValueError(f"ar_decode: unsupported device {mem_k.device}")
-    return _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry, pos0, steps, lengths)
+    return _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry, pos0, steps, lengths, plan)
 
 
 def _rounder(dtype: torch.dtype):
@@ -256,10 +265,11 @@ def ar_decode_plain(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, st
 
 class Plan(NamedTuple):
     """K1's launch plan: `groups` thread-block clusters of `cluster` CTAs,
-    each decoding `rows` batch rows (the last group may hold fewer); keys
-    split over a cluster's CTAs in interleaved tiles of `key_tile`; weights
-    streamed through a ring of `stages` x `stage_bytes`; `smem` bytes of
-    dynamic shared memory per CTA."""
+    each decoding `rows` batch rows (the last group may hold fewer), a few
+    rows over each of the clusters the card runs at once (`launch_plan`);
+    keys split over a cluster's CTAs in interleaved tiles of `key_tile`;
+    weights streamed through a ring of `stages` x `stage_bytes`; `smem`
+    bytes of dynamic shared memory per CTA."""
 
     cluster: int
     rows: int
@@ -374,16 +384,38 @@ def _smem(t: int, s: int, n_layers: int, d: int, h: int, d_ff: int, n_mels: int,
             + stages * STAGE_BYTES + _al16(vec) + _al16(small))
 
 
+def _deepest_ring(b: int, t: int, s: int, n_layers: int, d: int, n_heads: int, d_ff: int,
+                  n_mels: int, cluster: int, rows: int) -> Optional[Plan]:
+    """The plan of `rows` rows a cluster with the deepest ring that fits, or None."""
+    for stages in RING_STAGES:
+        smem = _smem(t, s, n_layers, d, n_heads, d_ff, n_mels, cluster, rows, stages)
+        if smem <= kernels.MAX_SMEM:
+            return Plan(cluster, rows, _cdiv(b, rows), KEY_TILE, stages, STAGE_BYTES, smem)
+    return None
+
+
 def launch_plan(b: int, t: int, s: int, n_layers: int, d: int, n_heads: int, d_ff: int,
-                n_mels: int, pe_len: int) -> Plan:
-    """K1's launch plan for B rows, T steps over S memory frames; raises
-    ValueError for a shape the kernel does not take.  The cluster is
-    `cluster_size`, rows go to as few clusters as fit (at most MAX_ROWS
-    each), then the ring is as deep as fits."""
+                n_mels: int, pe_len: int, max_clusters: int = 1) -> Plan:
+    """K1's launch plan for B rows, T steps over S memory frames, on a card
+    that runs `max_clusters` clusters at once (`co_resident_clusters`);
+    raises ValueError for a shape the kernel does not take.  The cluster is
+    `cluster_size`.  The rows spread over the clusters that run at once,
+    ceil(B / max_clusters) rows each (at most MAX_ROWS), and the ring
+    is as deep as fits in the shared memory the fewer rows free.  The decode
+    is latency-bound: a cluster pays its exchanges a step whatever its rows,
+    but each phase that loops over a CTA's rows costs with them, so idle SMs
+    are worth more than one weight stream shared by more rows.  Where that
+    spread needs no fewer rows a cluster than the fewest clusters that fit
+    (at most MAX_ROWS rows each), or fits no shared memory, the plan is
+    those fewest with the deepest ring that fits.  So it never asks for
+    more clusters than max(max_clusters, the fewest), and no cluster waits
+    for another's whole decode; at max_clusters 1 it is the fewest."""
     if not 1 <= t <= pe_len:
         raise ValueError(f"ar_decode kernel: max_len {t} outside the PE table (1..{pe_len})")
     if b < 1 or s < 1 or n_layers < 1:
         raise ValueError("ar_decode kernel: needs B, S and n_layers >= 1")
+    if max_clusters < 1:
+        raise ValueError("ar_decode kernel: needs max_clusters >= 1")
     if d not in WIDTHS:
         raise ValueError(f"ar_decode kernel: d={d} must be one of {WIDTHS}")
     if d % n_heads or (d // n_heads) % 8:
@@ -391,18 +423,53 @@ def launch_plan(b: int, t: int, s: int, n_layers: int, d: int, n_heads: int, d_f
     if n_mels % 16 or d_ff % 16:
         raise ValueError(f"ar_decode kernel: n_mels={n_mels} and d_ff={d_ff} must be "
                          "multiples of 16")
+    shape = (b, t, s, n_layers, d, n_heads, d_ff, n_mels)
     c = cluster_size(d, d_ff, n_mels)
+    fewest = None
     groups = _cdiv(b, MAX_ROWS)
-    while c and groups <= b:
-        rows = _cdiv(b, groups)
-        for stages in RING_STAGES:
-            smem = _smem(t, s, n_layers, d, n_heads, d_ff, n_mels, c, rows, stages)
-            if smem <= kernels.MAX_SMEM:
-                return Plan(c, rows, _cdiv(b, rows), KEY_TILE, stages, STAGE_BYTES, smem)
+    while c and fewest is None and groups <= b:
+        fewest = _deepest_ring(*shape, c, _cdiv(b, groups))
         groups += 1
-    raise ValueError(f"ar_decode kernel: no cluster of {CLUSTER_SIZES} takes d={d}, d_ff={d_ff}, "
-                     f"T={t}, S={s}, {n_layers} layers within {kernels.MAX_SMEM} bytes of "
-                     "shared memory")
+    if fewest is None:
+        raise ValueError(f"ar_decode kernel: no cluster of {CLUSTER_SIZES} takes d={d}, "
+                         f"d_ff={d_ff}, T={t}, S={s}, {n_layers} layers within "
+                         f"{kernels.MAX_SMEM} bytes of shared memory")
+    spread = min(MAX_ROWS, _cdiv(b, max_clusters))
+    for rows in range(spread, fewest.rows):  # ceil(B / rows) <= max_clusters clusters
+        plan = _deepest_ring(*shape, c, rows)
+        if plan is not None:
+            return plan
+    return fewest
+
+
+@functools.lru_cache(maxsize=None)
+def co_resident_clusters(device: torch.device, d: int, n_heads: int, d_ff: int,
+                         n_mels: int) -> int:
+    """How many K1 clusters (of `cluster_size` CTAs) the card runs at once
+    for these widths (cudaOccupancyMaxActiveClusters), at the most shared
+    memory a plan takes, kernels.MAX_SMEM: one CTA an SM, and a plan's own
+    is never more, so at least as many of its clusters fit.  Asked once per
+    process, device and widths; at least 1 (1 where no cluster size fits:
+    launch_plan then raises)."""
+    cluster = cluster_size(d, d_ff, n_mels)
+    if not cluster:
+        return 1
+    lib = kernels.library("ar_decode")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.ar_decode_max_clusters(d, n_heads, cluster, kernels.MAX_SMEM, ctypes.byref(n))
+    kernels.raise_on_error("ar_decode", err, lib)
+    return max(1, n.value)
+
+
+@functools.lru_cache(maxsize=1024)
+def card_plan(device: torch.device, b: int, t: int, s: int, n_layers: int, d: int,
+              n_heads: int, d_ff: int, n_mels: int, pe_len: int) -> Plan:
+    """`launch_plan` on this card (its `co_resident_clusters`), made once
+    per process and shape, so a launch of a shape seen before asks the card
+    nothing and plans nothing."""
+    return launch_plan(b, t, s, n_layers, d, n_heads, d_ff, n_mels, pe_len,
+                       max_clusters=co_resident_clusters(device, d, n_heads, d_ff, n_mels))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -414,7 +481,7 @@ UNSCHEDULABLE = -2  # ar_decode_launch's code for a cluster the card cannot plac
 
 
 def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, steps: int,
-                    lengths: Optional[torch.Tensor]):
+                    lengths: Optional[torch.Tensor], plan: Optional[Plan]):
     global launches
     L, b, s, d = mem_k.shape
     prev, kcache, vcache = carry
@@ -445,7 +512,8 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, st
     if lengths is not None:
         _check(lengths.device == dev and lengths.dtype == torch.int32 and lengths.is_contiguous()
                and tuple(lengths.shape) == (b,), f"lengths must be contiguous int32 [{b}] on {dev}")
-    plan = launch_plan(b, max_len, s, L, d, h, d_ff, n_mels, w.pe.shape[0])
+    if plan is None:
+        plan = card_plan(dev, b, max_len, s, L, d, h, d_ff, n_mels, w.pe.shape[0])
 
     ws = w.stream
     _check(ws is not None and ws.shape[0] == plan.cluster,
@@ -474,4 +542,5 @@ def _ar_decode_cuda(w, mem_k, mem_v, mem_bias, carry: DecodeCarry, pos0: int, st
             "returned 0)")
     kernels.raise_on_error("ar_decode", err, lib)
     launches += 1
+    tracing.count("k1.clusters", plan.groups)
     return DecodeCarry(out[:, -1], kcache, vcache), out

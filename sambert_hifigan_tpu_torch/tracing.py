@@ -61,7 +61,9 @@ batch.rows_padded (batch-bucket and replica padding), batch.frames_decoded
 each replica's longest row within the bucket, summed over replicas),
 batch.frames_returned; of a VITS pass (VitsPipeline, which counts no
 batch.k1_steps): vits.tokens (the rows' valid tokens, blanks included) and
-vits.frames (the rows' frames within the bucket, after the fetch).
+vits.frames (the rows' frames within the bucket, after the fetch); of
+every K1 launch on the card (ops/ar_decode.py): k1.clusters (the launch
+plan's clusters, so over ar_decode.launches the clusters a launch).
 """
 
 from __future__ import annotations

@@ -104,35 +104,43 @@ def _plain_one_shot(w, mk, mv, bias, t):
     return k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, mk.shape[1], t), 0, t)[1]
 
 
-def _k1_full_width(dev, b, t, n_layers):
-    """K1 against its plain version at full width.  Tolerance as
-    chip_smoke.py's K1 phase: mean 1e-2, max 0.1.  Returns the launch plan."""
+def _k1_full_width(dev, b, t, n_layers, plan):
+    """K1 on `plan` against its plain version at full width.  Tolerance as
+    chip_smoke.py's K1 phase: mean 1e-2, max 0.1."""
     w, mk, mv, bias = _full_width_inputs(dev, b, t, n_layers)
     before = k1.launches
-    out = k1.ar_decode(w, mk, mv, bias, t)
+    out = k1.ar_decode(w, mk, mv, bias, t, plan=plan)
     torch.cuda.synchronize()
     assert k1.launches == before + 1
     ref = _plain_one_shot(w, mk, mv, bias, t)
     assert torch.isfinite(out).all()
     err = (out - ref).abs()
     assert err.mean() < 1e-2 and err.max() < 0.1, (err.mean().item(), err.max().item())
-    return k1.launch_plan(b, t, t, n_layers, 256, 8, 2048, MELS, w.pe.shape[0])
+
+
+def _fewest_clusters(b, t, n_layers):
+    """The plan of a card that runs one cluster at once: as few as fit."""
+    return k1.launch_plan(b, t, t, n_layers, 256, 8, 2048, MELS, max(512, t), max_clusters=1)
 
 
 @pytest.mark.parametrize("t", [24, 300])
 @pytest.mark.parametrize("b", [1, 4, 16])
 def test_k1_kernel_matches_plain_at_full_width(cuda_device, b, t):
     """Two layers: one cluster of 16 CTAs for up to 16 rows."""
-    assert _k1_full_width(cuda_device, b, t, 2).groups == 1
+    plan = _fewest_clusters(b, t, 2)
+    assert (plan.cluster, plan.groups) == (16, 1)
+    _k1_full_width(cuda_device, b, t, 2, plan)
 
 
 @pytest.mark.parametrize("b,t,n_layers", [(19, 24, 2), (16, 2048, 6)],
                          ids=["B19-10+9-rows", "B16-T2048-6-layers"])
 def test_k1_kernel_on_two_clusters(cuda_device, b, t, n_layers):
-    """Shapes the plan splits over two clusters, so the second indexes the
-    memory, caches and mel at its own first row: 19 rows (10 + 9), and the
-    pipeline's largest buckets (16 rows, 2048 frames, 6 layers: 8 + 8)."""
-    assert _k1_full_width(cuda_device, b, t, n_layers).groups == 2
+    """Shapes that the fewest clusters split over two, so the second indexes
+    the memory, caches and mel at its own first row: 19 rows (10 + 9), and
+    the pipeline's largest buckets (16 rows, 2048 frames, 6 layers: 8 + 8)."""
+    plan = _fewest_clusters(b, t, n_layers)
+    assert plan.groups == 2
+    _k1_full_width(cuda_device, b, t, n_layers, plan)
 
 
 @pytest.mark.parametrize("chunk", [30, 48], ids=["divides-T", "does-not-divide-T"])
@@ -141,7 +149,8 @@ def test_k1_chunk_chain_equals_one_shot(cuda_device, b, chunk):
     """K1 launched chunk by chunk from its carry gives the one-shot launch's
     bits: the same plan (keyed by the caches' capacity T), the same steps,
     and the carried frame is the f32 value the mel exchange held.  B = 19
-    runs two clusters."""
+    runs several clusters (as many as the card runs at once, 3 rows each
+    on an H100)."""
     t = 300
     w, mk, mv, bias = _full_width_inputs(cuda_device, b, t, 2)
     one = k1.ar_decode(w, mk, mv, bias, t)
@@ -169,8 +178,8 @@ def test_k1_refuses_chunks_outside_the_carry(cuda_device):
 
 def _ragged(b, t, dev):
     """Row lengths with a row of length 0, one of the full T (the last) and
-    the rest spread below T / 2, int32 on dev: at B = 20 the first cluster's
-    longest row (10 rows) ends below T / 2, the second's at T."""
+    the rest spread below T / 2, int32 on dev: at B = 20 every cluster but
+    the last ends below T / 2, the last at T."""
     n = [(37 * r) % (t // 2) for r in range(b)]
     n[-1] = t if b > 1 else t // 3
     return torch.tensor(n, dtype=torch.int32, device=dev)
@@ -194,8 +203,9 @@ def _kept_frames_are_the_full_decodes(got, full, carry, full_carry, lengths):
                          ids=["B1", "B4", "B16-6-layers", "B20-two-clusters"])
 def test_k1_lengths_keep_the_kept_frames_bits(cuda_device, b, n_layers):
     """K1 with ragged lengths against K1 without, at full width (B = 16 the
-    default decoder's constant-shape instantiation, B = 20 two clusters of
-    10 rows that stop at different steps): one launch each, kept frames and
+    default decoder's constant-shape instantiation, B = 20 several clusters
+    that stop at different steps: two of 10 rows on a card that runs one
+    cluster at once, 7 of 3 rows on an H100): one launch each, kept frames and
     cache rows equal bit for bit, the rest 0; lengths of T give the decode
     without lengths.  Then against the plain version with the same lengths,
     at the no-lengths test's tolerance (mean 1e-2, max 0.1) over the kept
@@ -254,6 +264,101 @@ def test_k1_chunk_chain_with_lengths_equals_one_shot(cuda_device, b, chunk):
     for a, want in zip(carry, one_carry):
         assert torch.equal(a, want)
     _kept_frames_are_the_full_decodes(one, full, one_carry, full_carry, lengths)
+
+
+CYCLE_LONGEST = {1024: 610, 2048: 1090}  # tts-batch's longest rows a call, by frame bucket
+
+
+@pytest.fixture(scope="module")
+def cycle_call():
+    """A tts-batch call at frame bucket T, made once per T for the module:
+    the default decoder (6 layers), 16 rows, one as long as the bucket's
+    longest call row and the rest spread below it, each row's valid memory
+    frames its length; and the plain decodes with and without the lengths."""
+    made = {}
+
+    def make(t):
+        if t not in made:
+            dev = torch.device("cuda")
+            gen = torch.Generator().manual_seed(11)
+            dec = p_ar.PNCAARDecoder(256, MELS, DecoderConfig(n_layers=6, n_heads=8, d_ff=2048,
+                                                              dropout=0.0, max_len=t))
+            init_defaults_(dec, gen)
+            dec.init_weights_(gen)
+            dec = dec.to(dev).eval()
+            n = [CYCLE_LONGEST[t] if r == 5 else CYCLE_LONGEST[t] * (3 + (37 * r) % 11) // 14
+                 for r in range(16)]
+            lengths = torch.tensor(n, dtype=torch.int32, device=dev)
+            mask = torch.arange(t)[None, :] >= lengths.cpu()[:, None]
+            hvar = torch.from_numpy(_np(80, 16, t, 256)) * (~mask)[:, :, None]
+            w = p_ar.pack_decoder(dec, torch.bfloat16)
+            mk, mv = p_ar.precompute_memory_packed(dec, hvar.to(dev))
+            mk, mv = mk.bfloat16().contiguous(), mv.bfloat16().contiguous()
+            bias = torch.where(mask, k1.NEG_INF, 0.0).float().to(dev).contiguous()
+            full, kept = (k1.ar_decode_plain(w, mk, mv, bias, k1.init_carry(w, 16, t), 0, t,
+                                             ln)[1] for ln in (None, lengths))
+            made[t] = (w, mk, mv, bias, lengths, full, kept)
+        return made[t]
+
+    return make
+
+
+def _traced_clusters(fn):
+    """fn()'s result and the k1.clusters it counted, with tracing on."""
+    from sambert_hifigan_tpu_torch import tracing
+
+    tracing.reset()
+    tracing.enable(True)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tracing.snapshot()["counters"].get("k1.clusters", 0)
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+
+
+@pytest.mark.parametrize("t,rows", [(1024, r) for r in (1, 2, 4, 8, 16)]
+                         + [(2048, r) for r in (1, 2, 4, 8)])
+def test_k1_rows_per_cluster_match_plain(cuda_device, cycle_call, t, rows):
+    """tts-batch's calls (16 rows, the default decoder) on a plan of `rows`
+    rows a cluster, as far as the shared memory fits: against the plain
+    version with and without lengths (tolerance mean 1e-2, max 0.1 over the
+    kept frames), the kept frames and cache rows the bits of the same plan's
+    decode without lengths, and one k1.clusters per cluster of a launch."""
+    w, mk, mv, bias, lengths, plain_full, plain_kept = cycle_call(t)
+    plan = k1.launch_plan(16, t, t, 6, 256, 8, 2048, MELS, w.pe.shape[0],
+                          max_clusters=16 // rows)
+    assert (plan.rows, plan.groups) == (rows, 16 // rows)
+    (full_carry, full), counted = _traced_clusters(
+        lambda: k1.ar_decode_chunk(w, mk, mv, bias, k1.init_carry(w, 16, t), 0, t, plan=plan))
+    assert counted == plan.groups
+    carry, got = k1.ar_decode_chunk(w, mk, mv, bias, k1.init_carry(w, 16, t), 0, t, lengths,
+                                    plan=plan)
+    torch.cuda.synchronize()
+    _kept_frames_are_the_full_decodes(got, full, carry, full_carry, lengths)
+    kept = (torch.arange(t, device=cuda_device)[None, :] < lengths[:, None])[:, :, None]
+    for name, a, ref, mask in (("no lengths", full, plain_full, torch.ones_like(kept)),
+                               ("lengths", got, plain_kept, kept)):
+        assert torch.isfinite(a).all(), name
+        err = (a - ref).abs()[mask.expand_as(a)]
+        assert err.mean() < 1e-2 and err.max() < 0.1, (name, err.mean().item(),
+                                                         err.max().item())
+
+
+def test_k1_spreads_rows_over_the_clusters_the_card_runs(cuda_device):
+    """Without a plan K1 takes launch_plan's at the card's count of
+    co-resident clusters: 16 rows spread over more than one cluster, no more
+    than the card runs at once, and k1.clusters counts them a launch."""
+    w, mk, mv, bias = _full_width_inputs(cuda_device, 16, 300, 2)
+    card = k1.co_resident_clusters(cuda_device, 256, 8, 2048, MELS)
+    assert card >= 1 and k1.co_resident_clusters(cuda_device, 256, 8, 2048, MELS) == card
+    plan = k1.launch_plan(16, 300, 300, 2, 256, 8, 2048, MELS, w.pe.shape[0], max_clusters=card)
+    assert plan == k1.card_plan(cuda_device, 16, 300, 300, 2, 256, 8, 2048, MELS, w.pe.shape[0])
+    assert plan.groups <= card and (plan.groups > 1 or card == 1)
+    out, counted = _traced_clusters(lambda: k1.ar_decode(w, mk, mv, bias, 300))
+    assert counted == plan.groups
+    assert torch.equal(out, k1.ar_decode(w, mk, mv, bias, 300, plan=plan))
 
 
 def test_k1_refuses_lengths_it_does_not_take(cuda_device):

@@ -16,12 +16,8 @@ def _covers_once(ranges, n):
     return sorted(keys) == list(range(n)) and len(keys) == n
 
 
-@pytest.mark.parametrize("d", sorted(WIDTHS))
-@pytest.mark.parametrize("t", [24, 1024, 2048])
-@pytest.mark.parametrize("b", [1, 3, 4, 16, 20])
-def test_k1_launch_plan_owns_everything_once(b, t, d):
+def _owns_everything_once(plan, b, t, d):
     h, d_ff = WIDTHS[d]
-    plan = k1.launch_plan(b, t, t, 6, d, h, d_ff, N_MELS, PE_LEN)
     assert plan.cluster in k1.CLUSTER_SIZES and plan.cluster <= 16
     assert 0 < plan.smem <= kernels.MAX_SMEM
     assert 1 <= plan.rows <= k1.MAX_ROWS and plan.grid == plan.groups * plan.cluster
@@ -38,10 +34,69 @@ def test_k1_launch_plan_owns_everything_once(b, t, d):
         assert _covers_once([rng for r in ranks for rng in plan.key_tiles(n, r)], n)
 
 
+@pytest.mark.parametrize("d", sorted(WIDTHS))
+@pytest.mark.parametrize("t", [24, 1024, 2048])
+@pytest.mark.parametrize("b", [1, 3, 4, 16, 20])
+def test_k1_launch_plan_owns_everything_once(b, t, d):
+    h, d_ff = WIDTHS[d]
+    _owns_everything_once(k1.launch_plan(b, t, t, 6, d, h, d_ff, N_MELS, PE_LEN), b, t, d)
+
+
+def _fewest(b, t, d):
+    """The plan that packs the rows into as few clusters as fit (at most
+    MAX_ROWS each), then takes the deepest ring that fits."""
+    h, d_ff = WIDTHS[d]
+    c = k1.cluster_size(d, d_ff, N_MELS)
+    for groups in range(-(-b // k1.MAX_ROWS), b + 1):
+        rows = -(-b // groups)
+        for stages in k1.RING_STAGES:
+            smem = k1._smem(t, t, 6, d, h, d_ff, N_MELS, c, rows, stages)
+            if smem <= kernels.MAX_SMEM:
+                return k1.Plan(c, rows, -(-b // rows), k1.KEY_TILE, stages, k1.STAGE_BYTES, smem)
+    raise AssertionError("no plan fits")
+
+
+@pytest.mark.parametrize("d", sorted(WIDTHS))
+@pytest.mark.parametrize("max_clusters", [1, 4, 7, 8])
+@pytest.mark.parametrize("t", [24, 1024, 2048])
+@pytest.mark.parametrize("b", [1, 3, 4, 16, 20])
+def test_k1_launch_plan_spreads_rows(b, t, max_clusters, d):
+    """The rows spread over the clusters the card runs at once, ceil(B /
+    count) each unless the fewest clusters that fit already carry fewer, so
+    never over more clusters than max(the card's count, the fewest); on a
+    card that runs one cluster the plan is the fewest clusters with the
+    deepest ring."""
+    h, d_ff = WIDTHS[d]
+    plan = k1.launch_plan(b, t, t, 6, d, h, d_ff, N_MELS, PE_LEN, max_clusters=max_clusters)
+    _owns_everything_once(plan, b, t, d)
+    fewest = _fewest(b, t, d)
+    assert plan.groups <= max(max_clusters, fewest.groups)
+    assert plan.rows == min(-(-b // max_clusters), fewest.rows)
+    if max_clusters == 1 or fewest.groups >= max_clusters:
+        assert plan == fewest
+    assert plan == k1._deepest_ring(b, t, t, 6, d, h, d_ff, N_MELS, plan.cluster, plan.rows)
+
+
+@pytest.mark.parametrize("max_clusters", [7, 8, 16, 132])
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_k1_launch_plan_gives_tts_batch_calls_a_deep_ring(t, max_clusters):
+    """16 rows in a 1024- or 2048-frame bucket on a card that runs 7 or more
+    16-CTA clusters at once: a few rows a cluster and a 4-stage ring, where
+    the fewest clusters take 16 rows and 2 stages (T 1024) or 8 rows and 3
+    (T 2048)."""
+    plan = k1.launch_plan(16, t, t, 6, 256, 8, 2048, N_MELS, PE_LEN, max_clusters=max_clusters)
+    assert plan.stages == 4 and plan.rows <= 3 and plan.groups <= max_clusters
+    assert (plan.rows, plan.stages) != (_fewest(16, t, 256).rows, _fewest(16, t, 256).stages)
+
+
 def test_k1_launch_plan_main_path():
-    """The main path's shape: one cluster of 16 CTAs for the 4 rows."""
-    plan = k1.launch_plan(4, 1024, 1024, 6, 256, 8, 2048, N_MELS, PE_LEN)
-    assert (plan.cluster, plan.rows, plan.groups) == (16, 4, 1)
+    """The main path's shape, 4 rows: one row a 16-CTA cluster on a card
+    that runs 7 clusters at once, one cluster of all 4 on a card that runs
+    one."""
+    plan = k1.launch_plan(4, 1024, 1024, 6, 256, 8, 2048, N_MELS, PE_LEN, max_clusters=7)
+    assert (plan.cluster, plan.rows, plan.groups) == (16, 1, 4)
+    one = k1.launch_plan(4, 1024, 1024, 6, 256, 8, 2048, N_MELS, PE_LEN, max_clusters=1)
+    assert (one.cluster, one.rows, one.groups) == (16, 4, 1)
     assert plan.columns(256, 3) == (48, 64) and plan.k_rows(2048, 3) == (384, 512)
     assert plan.key_tiles(40, 1) == [(8, 16)]
 
@@ -59,6 +114,8 @@ def test_k1_launch_plan_refuses():
         k1.launch_plan(1, PE_LEN + 1, 24, 6, 256, 8, 2048, N_MELS, PE_LEN)
     with pytest.raises(ValueError):  # d beyond the 512 a LayerNorm warp holds
         k1.launch_plan(1, 24, 24, 6, 1024, 8, 4096, N_MELS, PE_LEN)
+    with pytest.raises(ValueError):  # no cluster runs at once
+        k1.launch_plan(1, 24, 24, 6, 256, 8, 2048, N_MELS, PE_LEN, max_clusters=0)
 
 
 @pytest.mark.parametrize("d_ff,cluster", [(16, 1), (64, 4)])
